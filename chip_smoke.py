@@ -1,0 +1,300 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+``python3 chip_smoke.py`` from the repository root:
+
+1. prints the environment (torch, the card, its power limit);
+2. builds the CUDA kernels from ``monkey_moore_tpu_torch/csrc/``;
+3. holds each kernel against its plain PyTorch version on the card, at the
+   main path's shapes and at a tiny tile, exactly (all values are
+   integers), and times both;
+4. writes a 1 GiB file of seeded random bytes with planted keywords and
+   searches it through ``monkey_moore_tpu_torch.engine.SearchEngine`` with
+   default settings (the resident device route): an 8-bit keyword, an
+   8-bit wildcard keyword planted often enough to overflow the fused step,
+   and a 16-bit big-endian keyword.  Every planted offset must be found,
+   and results must equal the same engine's host route.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it is
+the card's ``nvidia-smi`` name and power limit, and before that a JSON
+object with each kernel's launches on the main path, its largest
+difference from the plain version, and both times.  Any failure exits
+non-zero before those lines.  Without a CUDA card it exits 1 at once.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+SEED = 20261016
+MIB = 1 << 20
+FILE_BYTES = 1 << 30
+CHUNK = 512 * MIB  # the engine's default device chunk (bytes)
+TE = 262_144  # the main path's count tile (elements)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Median device time of one call, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def random_words(torch, gen, n_bytes: int):
+    return torch.randint(
+        -(2**31), 2**31, (n_bytes // 4,), dtype=torch.int32,
+        device="cuda", generator=gen,
+    )
+
+
+def plant_words(torch, words, pat, positions, shift):
+    """Write the keyword (shifted by ``shift``) at element positions."""
+    import numpy as np
+
+    width = np.dtype(pat.dtype).itemsize
+    elems = words.view(torch.uint8 if width == 1 else torch.int16)
+    kw = (np.array(pat.keyword, dtype=np.int64) + shift) % (1 << (8 * width))
+    kw_t = torch.tensor(kw.astype(np.int64), device="cuda").to(elems.dtype)
+    for pos in positions:
+        elems[pos : pos + pat.length] = kw_t
+
+
+def kernel_phase(torch):
+    """Phase 3: each kernel against its plain version; returns the rows of
+    the kernels line without launch counts."""
+    import numpy as np
+
+    from monkey_moore_tpu.pattern import compile_pattern
+    from monkey_moore_tpu_torch.ops import scan_cuda
+    from monkey_moore_tpu_torch.ops.scan_torch import nonzero_capped
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    err_a = err_b = 0
+    a_ms = a_plain_ms = b_ms = b_plain_ms = None
+    for width in (1, 2):
+        dtype = np.uint8 if width == 1 else np.uint16
+        for kw, wc in (("abcde", 0), ("ab*de", "*")):
+            pat = compile_pattern(kw, wc, dtype=dtype)
+            checks = scan_cuda.prefilter_operand(pat, "cuda")
+            for te, n_tiles in ((TE, CHUNK // (TE * width)), (8, 4096)):
+                words = random_words(torch, gen, (n_tiles + 1) * te * width)
+                valid = n_tiles * te - (1234 % te)
+                plants = [1, 2 * te - 2, (n_tiles // 2) * te + 7,
+                          valid - pat.length]
+                plant_words(torch, words, pat, plants, 3)
+                args = dict(width=width, tile_elems=te, length=pat.length,
+                            valid_count=valid)
+                got = scan_cuda.tile_counts(words, checks, **args)
+                want = scan_cuda.tile_counts_plain(words, checks, **args)
+                check(got.shape == want.shape, "kernel A shape")
+                err_a = max(err_a, int((got - want).abs().max()))
+                check(int(want.sum()) >= len(plants), "kernel A plants")
+                if te == TE and width == 1 and kw == "abcde":
+                    a_ms = time_ms(
+                        torch, lambda: scan_cuda.tile_counts(
+                            words, checks, **args), 20)
+                    a_plain_ms = time_ms(
+                        torch, lambda: scan_cuda.tile_counts_plain(
+                            words, checks, **args), 5)
+                if te == TE and kw == "abcde":
+                    for k_cap in (1, 32, 128):
+                        hot = nonzero_capped(got, k_cap)
+                        hot[k_cap // 2 :] = hot[0].clone()  # duplicate ids
+                        gargs = dict(width=width, tile_elems=te)
+                        g = scan_cuda.gather_tiles(words, hot, **gargs)
+                        p = scan_cuda.gather_tiles_plain(words, hot, **gargs)
+                        err_b = max(err_b, int(
+                            (g.to(torch.int16) - p.to(torch.int16))
+                            .abs().max()))
+                        if k_cap == 32 and width == 1:
+                            b_ms = time_ms(torch, lambda: scan_cuda
+                                           .gather_tiles(words, hot, **gargs),
+                                           50)
+                            b_plain_ms = time_ms(torch, lambda: scan_cuda
+                                                 .gather_tiles_plain(
+                                                     words, hot, **gargs), 10)
+                del words, got, want
+                torch.cuda.empty_cache()
+    check(err_a == 0, f"kernel A differs from its plain version by {err_a}")
+    check(err_b == 0, f"kernel B differs from its plain version by {err_b}")
+    print(f"phase 3 kernels: A == plain (u8/u16, abcde/ab*de, te={TE} "
+          f"over {CHUNK // MIB} MiB and te=8): {a_ms:.4f} ms vs "
+          f"{a_plain_ms:.4f} ms plain; B == plain (k_cap 1/32/128): "
+          f"{b_ms:.4f} ms vs {b_plain_ms:.4f} ms plain at k_cap=32",
+          flush=True)
+    return [
+        {"name": "tile_counts", "route": "cuda",
+         "source": "monkey_moore_tpu_torch/csrc/tile_counts.cu",
+         "replaces": "monkey_moore_tpu/ops/scan_pallas.py:612",
+         "max_abs_err": err_a, "ms": a_ms, "plain_ms": a_plain_ms},
+        {"name": "gather_tiles", "route": "cuda",
+         "source": "monkey_moore_tpu_torch/csrc/gather_tiles.cu",
+         "replaces": "monkey_moore_tpu/ops/scan_pallas.py:245",
+         "max_abs_err": err_b, "ms": b_ms, "plain_ms": b_plain_ms},
+    ]
+
+
+def write_corpus(path: Path):
+    """1 GiB of seeded random bytes with the three searches' plants;
+    returns {name: (config kwargs, planted byte offsets)}."""
+    import numpy as np
+
+    from monkey_moore_tpu.config import Endianness
+
+    rng = np.random.default_rng(SEED)
+    data = np.frombuffer(rng.bytes(FILE_BYTES), dtype=np.uint8).copy()
+    n = FILE_BYTES
+
+    def put(offset, values):
+        data[offset : offset + len(values)] = values
+
+    kw1 = (np.array([ord(c) for c in "monkey"]) + 3).astype(np.uint8)
+    plain8 = [4101, 123_456_789, CHUNK - 3, CHUNK + 1_000_001, n - 6]
+    for off in plain8:
+        put(off, kw1)
+
+    kw2 = (np.array([ord(c) for c in "dragon"]) + 7).astype(np.uint8)
+    dense = [7 * MIB + 3 + 8 * i for i in range(1100)]  # > p_cap in a chunk
+    wild8 = dense + [900_000_003, 1_000_000_007]
+    for i, off in enumerate(wild8):
+        kw2[2] = i % 251  # the wildcard position holds anything
+        put(off, kw2)
+
+    kw3 = (np.array([ord(c) for c in "castle"]) + 0x3000).astype(">u2")
+    be16 = [2000, 200_000_001, 600_000_000, 800_000_001, n - 40, n - 27]
+    for off in be16:
+        put(off, kw3.view(np.uint8))
+
+    data.tofile(path)
+    return {
+        "8-bit": (dict(keyword="monkey"), plain8),
+        "8-bit wildcard": (dict(keyword="dr*gon", wildcard="*"), wild8),
+        "16-bit BE": (dict(keyword="castle", element_width=2,
+                           endianness=Endianness.BIG), be16),
+    }
+
+
+def slice_phase(torch, workdir: Path):
+    """Phase 4: the three searches through the port's entry point."""
+    from monkey_moore_tpu.config import SearchConfig
+    from monkey_moore_tpu_torch.engine import SearchEngine
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    path = workdir / "corpus.bin"
+    t0 = time.perf_counter()
+    searches = write_corpus(path)
+    print(f"phase 4 corpus: {FILE_BYTES // MIB} MiB written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    device_results = {}
+    scan_cuda.reset_launch_counts()
+    for name, (kwargs, planted) in searches.items():
+        engine = SearchEngine(SearchConfig(file_path=path, **kwargs),
+                              device="cuda")
+        times = []
+        for _ in range(2):  # first search, then a repeat on the resident file
+            t0 = time.perf_counter()
+            results = engine.run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        stats = engine.last_stats
+        check(not stats.host_routed and stats.fused_steps > 0,
+              f"{name}: did not take the device route")
+        device_results[name] = (results, stats, times)
+    launches = dict(scan_cuda.launch_counts)
+
+    for name, (kwargs, planted) in searches.items():
+        results, stats, times = device_results[name]
+        offsets = [r.offset for r in results]
+        missing = sorted(set(planted) - set(offsets))
+        check(not missing, f"{name}: planted offsets not found: {missing}")
+        host = SearchEngine(
+            SearchConfig(file_path=path,
+                         host_latency_threshold_bytes=FILE_BYTES + 1,
+                         **kwargs),
+            device="cuda",
+        )
+        host_results = host.run()
+        check(host.last_stats.host_routed, f"{name}: host route not taken")
+        check(offsets == [r.offset for r in host_results],
+              f"{name}: offsets differ from the host route")
+        check([r.values_map for r in results]
+              == [r.values_map for r in host_results],
+              f"{name}: values maps differ from the host route")
+        if name == "8-bit wildcard":
+            check(stats.fused_fallbacks > 0,
+                  "the overflow keyword did not take the fallback")
+        print(f"phase 4 search {name!r}: {len(results)} results "
+              f"(= host route), first {times[0]:.3f} s, repeat "
+              f"{times[1]:.3f} s | {stats.summary()}", flush=True)
+    check(launches["tile_counts"] > 0 and launches["gather_tiles"] > 0,
+          f"kernels not launched on the main path: {launches}")
+    print(f"phase 4 launches on the main path: {launches}", flush=True)
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from monkey_moore_tpu_torch.ops import _build
+
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(f"phase 1 env: torch {torch.__version__} (CUDA "
+          f"{torch.version.cuda}), device {name!r}, nvidia-smi: {smi}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    lib = _build.build_library()
+    _build.load_library()
+    print(f"phase 2 build: {lib.name} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    kernels = kernel_phase(torch)
+    with tempfile.TemporaryDirectory(prefix="mm_chip_smoke_") as tmp:
+        launches = slice_phase(torch, Path(tmp))
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

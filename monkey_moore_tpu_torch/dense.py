@@ -1,0 +1,283 @@
+"""Single-device fused search step — counterpart of the JAX package's
+``dense.py`` (its device-route part).
+
+One step scans one grid chunk: :func:`fused_count_extract_start` enqueues
+the per-tile prefilter counts (CUDA kernel A), the hot-tile gather (kernel
+B) and the exact phase 2 on the device and returns at once;
+:func:`fused_count_extract_finish` copies the step's combo buffer to the
+host — the step's only sync point — and decodes offsets and recovery
+values.  When more than ``k_cap`` tiles are hot or more than ``p_cap``
+candidates match, the finish fetches the full counts and runs the batched
+host extraction instead (:func:`extract_hot_tiles_device`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from monkey_moore_tpu.ops.recover import recovery_shifts
+from monkey_moore_tpu.ops.scan_np import match_positions_np
+from monkey_moore_tpu.pattern import CompiledPattern
+
+from .ops.host import (
+    _EMPTY,
+    TILE_ELEMS,
+    FusedInfo,
+    _combo_info,
+    _gather_fallback_bytes,
+    _parse_combo,
+    _prefilter_sel,
+    auto_k_cap,
+)
+from .ops.scan_cuda import prefilter_operand, tile_counts_gather
+from .ops.scan_cuda import tile_counts as _kernel_tile_counts
+
+__all__ = [
+    "TILE_ELEMS",
+    "FusedInfo",
+    "FusedPending",
+    "wants_packed",
+    "tile_counts",
+    "fused_count_extract_start",
+    "fused_count_extract_finish",
+    "fused_count_extract",
+    "extract_hot_tiles_device",
+]
+
+
+def _packed(pat: CompiledPattern, arr: torch.Tensor) -> bool:
+    return arr.dtype == torch.int32 and np.dtype(pat.dtype).itemsize < 4
+
+
+def wants_packed(pat: CompiledPattern) -> bool:
+    """True when the step scans through the counts kernel, which takes the
+    packed little-endian int32 word layout (every pattern with at least one
+    check); all-wildcard patterns take element arrays."""
+    pairs, _, _ = _prefilter_sel(pat)
+    return bool(pairs)
+
+
+def tile_counts(
+    pat: CompiledPattern,
+    arr_device: torch.Tensor,
+    valid_count: int,
+    tile_elems: int = TILE_ELEMS,
+) -> np.ndarray:
+    """Phase 1 alone: int32[T] prefilter counts per tile, on the host.
+
+    ``arr_device`` holds ``(T+1) * tile_elems`` elements (T counted tiles
+    plus one halo tile): packed words, or u8/u16 elements for a pattern
+    with no checks."""
+    width = np.dtype(pat.dtype).itemsize
+    packed = _packed(pat, arr_device)
+    n_elems = arr_device.numel() * (4 // width if packed else 1)
+    num_tiles = n_elems // tile_elems - 1
+    pairs, _, _ = _prefilter_sel(pat)
+    if not pairs:
+        # no literal checks (all-wildcard keyword): every valid window
+        # matches; count directly
+        starts = np.arange(num_tiles) * tile_elems
+        last_valid = valid_count - pat.length  # inclusive
+        return np.clip(last_valid + 1 - starts, 0, tile_elems).astype(
+            np.int32
+        )
+    if not packed:
+        raise ValueError("the counts kernel takes packed int32 words")
+    counts = _kernel_tile_counts(
+        arr_device, prefilter_operand(pat, arr_device.device), width=width,
+        tile_elems=tile_elems, length=pat.length, valid_count=valid_count,
+    )
+    return counts.cpu().numpy()
+
+
+class FusedPending(NamedTuple):
+    """An in-flight fused step: device tensors whose computation may still
+    be running, plus what :func:`fused_count_extract_finish` needs to fetch
+    and decode them.  ``eager`` holds an already-final result for the
+    all-wildcard branch, which cannot pipeline."""
+
+    counts_dev: object
+    combo_dev: object
+    pat: object
+    arr_device: object
+    valid_count: int
+    tile_elems: int
+    grid_offset: int
+    k_cap: int
+    p_cap: int
+    eager: tuple = None
+
+
+def fused_count_extract_start(
+    pat: CompiledPattern,
+    arr_device: torch.Tensor,
+    valid_count: int,
+    tile_elems: int = TILE_ELEMS,
+    grid_offset: int = 0,
+    k_cap: int | None = None,
+    p_cap: int = 1024,
+) -> FusedPending:
+    """Enqueue phases 1 + 2 of one step WITHOUT fetching the result, so the
+    caller can enqueue the next chunk first.  ``arr_device``: the chunk's
+    packed words (``(T+1) * tile_elems`` elements)."""
+    pairs, _, _ = _prefilter_sel(pat)
+    if k_cap is None:
+        k_cap = auto_k_cap(pat, valid_count, tile_elems, len(pairs))
+    if not pairs:
+        # all-wildcard keywords match every window — every tile is hot, so
+        # fusion buys nothing: count on the host, extract every tile
+        counts = tile_counts(pat, arr_device, valid_count, tile_elems)
+        offs, vals = extract_hot_tiles_device(
+            pat, arr_device, counts, valid_count, tile_elems, grid_offset
+        )
+        n_hot = int((counts > 0).sum())
+        info = FusedInfo(
+            n_hot, int(counts.sum()), candidates=len(offs), fallback=True,
+            d2h_bytes=counts.nbytes + _gather_fallback_bytes(
+                pat, n_hot, tile_elems
+            ),
+        )
+        return FusedPending(
+            None, None, pat, arr_device, valid_count, tile_elems,
+            grid_offset, k_cap, p_cap, eager=(offs, vals, info),
+        )
+    if not _packed(pat, arr_device):
+        raise ValueError("the fused step takes packed int32 words")
+    counts_dev, combo_dev = tile_counts_gather(
+        pat, arr_device, valid_count, tile_elems, k_cap, p_cap
+    )
+    return FusedPending(
+        counts_dev, combo_dev, pat, arr_device, valid_count, tile_elems,
+        grid_offset, k_cap, p_cap,
+    )
+
+
+def fused_count_extract_finish(
+    pending: FusedPending,
+) -> Tuple[np.ndarray, np.ndarray, FusedInfo]:
+    """Fetch and decode an in-flight step (the blocking half): ONE
+    device→host copy of the combo buffer, or on capacity overflow the full
+    counts and the batched hot-tile fetch."""
+    if pending.eager is not None:
+        return pending.eager
+    combo = pending.combo_dev.cpu().numpy()
+    k_cap, p_cap = pending.k_cap, pending.p_cap
+    info = _combo_info(combo, k_cap, p_cap)
+    if info.hot_tiles == 0:
+        return *_EMPTY, info
+    if info.fallback:
+        counts_np = pending.counts_dev.cpu().numpy()
+        offs, vals = extract_hot_tiles_device(
+            pending.pat, pending.arr_device, counts_np,
+            pending.valid_count, pending.tile_elems, pending.grid_offset,
+        )
+        info = info._replace(
+            candidates=len(offs),
+            d2h_bytes=info.d2h_bytes + counts_np.nbytes
+            + _gather_fallback_bytes(
+                pending.pat, int((counts_np > 0).sum()),
+                pending.tile_elems,
+            ),
+        )
+        return offs, vals, info
+    offsets, values = _parse_combo(
+        combo, k_cap, p_cap, pending.tile_elems, pending.grid_offset
+    )
+    return offsets, values, info
+
+
+def fused_count_extract(
+    pat: CompiledPattern,
+    arr_device: torch.Tensor,
+    valid_count: int,
+    tile_elems: int = TILE_ELEMS,
+    grid_offset: int = 0,
+    k_cap: int | None = None,
+    p_cap: int = 1024,
+) -> Tuple[np.ndarray, np.ndarray, FusedInfo]:
+    """Phases 1 + 2 for one device-resident chunk: ``(offsets, values,
+    info)``, offsets ascending, values the two recovery values per match."""
+    return fused_count_extract_finish(
+        fused_count_extract_start(
+            pat, arr_device, valid_count, tile_elems=tile_elems,
+            grid_offset=grid_offset, k_cap=k_cap, p_cap=p_cap,
+        )
+    )
+
+
+def extract_hot_tiles_device(
+    pat: CompiledPattern,
+    arr_device: torch.Tensor,
+    counts: np.ndarray,
+    valid_count: int,
+    tile_elems: int = TILE_ELEMS,
+    grid_offset: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Phase 2 on the host for the degraded steps: fetch only the hot
+    tiles' spans (``tile_elems + L - 1`` elements each) in ONE batched
+    device→host copy and run the exact matcher on them.  ``arr_device`` is
+    the step's buffer, packed words or u8/u16 elements."""
+    L = pat.length
+    itemsize = np.dtype(pat.dtype).itemsize
+    packed = _packed(pat, arr_device)
+    elems_per_word = 4 // itemsize
+    total = arr_device.numel() * (elems_per_word if packed else 1)
+    shifts = recovery_shifts(pat)
+    hot = np.nonzero(counts)[0]
+    if len(hot) == 0:
+        return _EMPTY
+
+    # the hot count is padded to the next power of two (duplicated last
+    # tile), as in the reference, so its d2h accounting matches
+    span_elems = tile_elems + L - 1
+    if packed:
+        span_w = span_elems // elems_per_word + 2
+        w0s = hot * (tile_elems // elems_per_word)
+    else:
+        span_w = span_elems
+        w0s = hot * tile_elems
+    n_pad = 1 << int(len(hot) - 1).bit_length()
+    w0s_pad = np.concatenate(
+        [w0s, np.repeat(w0s[-1:], n_pad - len(w0s))]
+    ).astype(np.int64)
+    idx = np.clip(
+        w0s_pad[:, None] + np.arange(span_w)[None, :],
+        0, arr_device.shape[0] - 1,
+    )
+    index = torch.from_numpy(idx).to(arr_device.device)
+    fetched = arr_device[index].cpu().numpy()
+
+    all_offsets = []
+    all_values = []
+    for i, t in enumerate(hot.tolist()):
+        s0 = t * tile_elems
+        s1 = min(total, s0 + tile_elems + L - 1)
+        if packed:
+            w0, w1 = s0 // elems_per_word, -(-s1 // elems_per_word)
+            sl = fetched[i][w0 - w0s_pad[i] : w1 - w0s_pad[i]]
+            sl = sl.view(pat.dtype)[s0 - w0 * elems_per_word :][: s1 - s0]
+        else:
+            sl = fetched[i][s0 - w0s_pad[i] : s1 - w0s_pad[i]]
+        # trim device padding past the valid element count
+        sl = sl[: max(0, valid_count - s0)]
+        pos = match_positions_np(pat, sl)
+        pos = pos[pos < tile_elems]
+        if len(pos):
+            v0 = sl[np.minimum(pos + shifts[0], len(sl) - 1)].astype(np.int64)
+            v1 = sl[
+                np.minimum(
+                    pos + (shifts[1] if len(shifts) > 1 else shifts[0]),
+                    len(sl) - 1,
+                )
+            ].astype(np.int64)
+            all_offsets.append(pos + s0)
+            all_values.append(np.stack([v0, v1], axis=1))
+    if not all_offsets:
+        return _EMPTY
+    return (
+        np.concatenate(all_offsets) + grid_offset,
+        np.concatenate(all_values),
+    )

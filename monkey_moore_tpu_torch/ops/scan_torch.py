@@ -1,0 +1,186 @@
+"""Plain tensor code of the fused device step — counterpart of the JAX
+package's ``ops/scan_jnp.py``.
+
+The JAX package computes these pieces with XLA, outside any Pallas kernel,
+so the port keeps them as plain PyTorch on the card too.  Every function
+here enqueues work and never synchronises with the host (no
+``torch.nonzero``, boolean-mask indexing, ``.item()`` or host uploads), so
+``dense.fused_count_extract_start`` returns as soon as the step is queued.
+
+Element values travel as int32 tensors holding the unsigned element value:
+torch has no uint16 arithmetic on the CPU, and ``>>`` on int32 is
+arithmetic, so narrow buffers are widened with a mask before any math.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from monkey_moore_tpu.ops.recover import recovery_shifts
+from monkey_moore_tpu.pattern import CompiledPattern
+
+__all__ = [
+    "operand_cache",
+    "pattern_device_args",
+    "as_elements",
+    "widen",
+    "count_body",
+    "nonzero_capped",
+    "exact_phase2",
+    "pack_combo",
+]
+
+_operand_cache_lock = threading.Lock()
+
+
+def operand_cache(pat: CompiledPattern) -> dict:
+    """Per-pattern memo of small device operands.  Building one uploads it
+    (a host sync), so each search step reuses the copy made by the first."""
+    with _operand_cache_lock:
+        cache = getattr(pat, "_torch_operands", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(pat, "_torch_operands", cache)
+        return cache
+
+
+def pattern_device_args(
+    pat: CompiledPattern, device
+) -> Tuple[torch.Tensor, ...]:
+    """``(shift_cur, shift_prev, expected, recovery)`` int32 tensors on
+    *device*: the exact check tables and the two recovery shifts (the
+    second may repeat the first), as ``scan_jnp.pattern_device_args``."""
+    cache = operand_cache(pat)
+    key = ("args", str(torch.device(device)))
+    if key not in cache:
+        shifts = recovery_shifts(pat)
+        s1 = shifts[1] if len(shifts) > 1 else shifts[0]
+        host = [
+            np.asarray(pat.chk_shift_cur, dtype=np.int64),
+            np.asarray(pat.chk_shift_prev, dtype=np.int64),
+            np.asarray(pat.chk_expected).astype(np.int64),
+            np.asarray([shifts[0], s1], dtype=np.int64),
+        ]
+        cache[key] = tuple(
+            torch.tensor(a, dtype=torch.int32, device=device) for a in host
+        )
+    return cache[key]
+
+
+def as_elements(words: torch.Tensor, width: int) -> torch.Tensor:
+    """Zero-copy view of a packed little-endian word buffer as its u8 or
+    u16 elements (memory order is little-endian on the host and the card)."""
+    return words.view(torch.uint8 if width == 1 else torch.uint16)
+
+
+def widen(elems: torch.Tensor) -> torch.Tensor:
+    """u8/u16 elements → int32 tensor of the unsigned values."""
+    if elems.dtype == torch.uint16:
+        return elems.view(torch.int16).to(torch.int32) & 0xFFFF
+    return elems.to(torch.int32)
+
+
+def count_body(
+    x: torch.Tensor,
+    valid_count: int,
+    expected: Sequence[int],
+    pairs: Sequence[Tuple[int, int]],
+    length: int,
+    tile_elems: int,
+    width: int,
+) -> torch.Tensor:
+    """Per-tile prefilter counts, int32[T] (``scan_jnp._count_body``).
+
+    ``x``: int32 element values, ``(T+1) * tile_elems`` of them (T counted
+    tiles plus one halo tile).  A window start ``e`` counts when
+    ``e <= valid_count - length`` and, for every check, ``(x[e+c] - x[e+p])
+    mod 2^(8*width) == expected``."""
+    counted = x.shape[0] - tile_elems
+    mask = (1 << (8 * width)) - 1
+    ok = torch.ones(counted, dtype=torch.bool, device=x.device)
+    for (c, p), e in zip(pairs, expected):
+        ok &= ((x[c : c + counted] - x[p : p + counted]) & mask) == int(e)
+    idx = torch.arange(counted, dtype=torch.int64, device=x.device)
+    ok &= idx <= valid_count - length
+    return ok.view(-1, tile_elems).sum(dim=1, dtype=torch.int32)
+
+
+def nonzero_capped(flat: torch.Tensor, cap: int) -> torch.Tensor:
+    """First ``cap`` indices where ``flat != 0``, ascending, as int32
+    (``scan_jnp.nonzero_capped``) — with no host sync: a cumulative count
+    and a binary search for each rank 1..cap.  Entries past the true count
+    are 0 (unspecified in the reference)."""
+    n = flat.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"nonzero_capped: {n} elements exceed int32 indices")
+    csum = torch.cumsum(flat != 0, 0, dtype=torch.int32)
+    ranks = torch.arange(1, cap + 1, dtype=torch.int32, device=flat.device)
+    idx = torch.searchsorted(csum, ranks, out_int32=True)
+    return torch.where(idx < n, idx, 0)
+
+
+def exact_phase2(
+    slots: torch.Tensor,
+    hot: torch.Tensor,
+    nhot: torch.Tensor,
+    vt2: int,
+    vr2: int,
+    *,
+    tile_elems: int,
+    length: int,
+    pairs_exact: Sequence[Tuple[int, int]],
+    expected: torch.Tensor,
+    signed_compare: bool,
+    recovery: torch.Tensor,
+    p_cap: int,
+):
+    """EXACT phase 2 over gathered hot-tile slots (``scan_jnp.exact_phase2``).
+
+    ``slots``: ``(K, span)`` u8/u16 elements, slot i covering tile
+    ``hot[i]``'s ``tile_elems + length - 1`` elements; the valid element
+    count is ``vt2 * tile_elems + vr2``.  Every check of the pattern runs,
+    signed where the mode requires, so prefilter false positives die here.
+    Returns int32 ``(n_cand, flat_idx[p_cap], v0[p_cap], v1[p_cap])`` with
+    ``flat_idx = slot * tile_elems + rel`` ascending.  Slots at or past
+    ``nhot`` get a valid count of 0."""
+    K, span = slots.shape
+    positions = span - length + 1  # == tile_elems by construction
+    dev = slots.device
+    vals = widen(slots)
+    mask = (1 << (8 * slots.element_size())) - 1
+    dt = torch.clamp(vt2 - hot.to(torch.int64), -1, 2)
+    valid_slot = torch.clamp(dt * tile_elems + vr2, 0, span)
+    slot_ids = torch.arange(K, dtype=torch.int64, device=dev)
+    valid_slot = torch.where(slot_ids < nhot, valid_slot, 0)
+    ok = torch.ones((K, positions), dtype=torch.bool, device=dev)
+    for i, (c, p) in enumerate(pairs_exact):
+        diff = vals[:, c : c + positions] - vals[:, p : p + positions]
+        if not signed_compare:
+            diff = diff & mask
+        ok &= diff == expected[i]
+    pos_idx = torch.arange(positions, dtype=torch.int64, device=dev)
+    ok &= pos_idx[None, :] <= valid_slot[:, None] - length
+    flat = ok.view(-1)
+    n_cand = flat.sum(dtype=torch.int32)
+    idx = nonzero_capped(flat, p_cap)
+    slot = (idx // positions).to(torch.int64)
+    rel = (idx % positions).to(torch.int64)
+    lim = torch.clamp(valid_slot[slot] - 1, min=0)
+    r0 = torch.minimum(torch.clamp(rel + recovery[0], min=0), lim)
+    r1 = torch.minimum(torch.clamp(rel + recovery[1], min=0), lim)
+    return n_cand, idx, vals[slot, r0], vals[slot, r1]
+
+
+def pack_combo(counts, hot, nhot, n_cand, flat_idx, v0, v1) -> torch.Tensor:
+    """The step's single device→host buffer, int32 (layout:
+    ``host.COMBO_HEADER``): ``[n_hot, total, n_cand, hot_ids, hot_counts,
+    flat_idx, v0, v1]``.  ``total`` wraps like the reference's int32 sum."""
+    total = counts.sum().to(torch.int32)
+    header = torch.stack([nhot.to(torch.int32), total, n_cand.to(torch.int32)])
+    return torch.cat(
+        [header, hot, counts[hot.to(torch.int64)], flat_idx, v0, v1]
+    )

@@ -1,0 +1,103 @@
+"""The PyTorch port's CUDA kernels against their plain PyTorch versions, on
+the card.
+
+These tests need a CUDA device and ``nvcc``; without a card they skip.  On
+the card, run ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
+Tolerance: exact equality throughout — every value is an integer.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from monkey_moore_tpu.config import Endianness, SearchConfig
+from monkey_moore_tpu.pattern import compile_pattern
+from monkey_moore_tpu_torch.ops import scan_cuda
+from monkey_moore_tpu_torch.ops.host import prefilter_checks, wordcmp_run
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _planted_words(rng, pat, n_tiles, tile_elems, n_valid, plants):
+    width = np.dtype(pat.dtype).itemsize
+    mod = 1 << (8 * width)
+    arr = np.zeros((n_tiles + 1) * tile_elems, dtype=pat.dtype)
+    arr[:n_valid] = rng.integers(0, mod, n_valid).astype(pat.dtype)
+    kw = np.array(pat.keyword, dtype=np.int64)
+    for i, pos in enumerate(plants):
+        arr[pos : pos + pat.length] = ((kw + 3 * i) % mod).astype(pat.dtype)
+    return torch.from_numpy(arr.reshape(-1).view("<i4").copy())
+
+
+@pytest.mark.parametrize(
+    "kw,wc,width",
+    [("abcde", 0, 1), ("ab*de", "*", 1), ("abcde", 0, 2), ("ab*de", "*", 2)],
+)
+@pytest.mark.parametrize("tile_elems", [8, 4096])
+def test_tile_counts_kernel_equals_plain(cuda, kw, wc, width, tile_elems):
+    rng = np.random.default_rng(1)
+    pat = compile_pattern(kw, wc, dtype=np.uint8 if width == 1 else np.uint16)
+    pairs, _ = prefilter_checks(pat)
+    assert (wordcmp_run(pairs, 4 // width) is None) == (wc != 0)
+    n_tiles = 64
+    n_valid = n_tiles * tile_elems - 3
+    plants = [0, tile_elems - 2, n_valid - pat.length, 5 * tile_elems + 1]
+    words = _planted_words(rng, pat, n_tiles, tile_elems, n_valid, plants)
+    checks = scan_cuda.prefilter_operand(pat, "cpu")
+    kwargs = dict(width=width, tile_elems=tile_elems, length=pat.length,
+                  valid_count=n_valid)
+    want = scan_cuda.tile_counts(words, checks, **kwargs)
+    got = scan_cuda.tile_counts(words.to(cuda), checks.to(cuda), **kwargs)
+    assert got.cpu().tolist() == want.tolist()
+    assert int(want.sum()) >= len(plants)
+
+
+@pytest.mark.parametrize("k_cap", [1, 32, 128])
+@pytest.mark.parametrize("tile_elems,width", [(8, 1), (4096, 1), (4096, 2)])
+def test_gather_tiles_kernel_equals_plain(cuda, k_cap, tile_elems, width):
+    rng = np.random.default_rng(2)
+    n_tiles = 40
+    words = torch.from_numpy(
+        rng.integers(-(2**31), 2**31, (n_tiles + 1) * tile_elems * width // 4)
+        .astype(np.int32)
+    )
+    hot = rng.integers(0, n_tiles, k_cap).astype(np.int32)
+    hot[k_cap // 2 :] = hot[0]  # duplicate ids, as idle slots repeat
+    hot = torch.from_numpy(hot)
+    want = scan_cuda.gather_tiles(words, hot, width=width,
+                                  tile_elems=tile_elems)
+    got = scan_cuda.gather_tiles(words.to(cuda), hot.to(cuda), width=width,
+                                 tile_elems=tile_elems)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_engine_cuda_equals_cpu(cuda, tmp_path):
+    from monkey_moore_tpu_torch.engine import SearchEngine
+
+    rng = np.random.default_rng(3)
+    data = rng.integers(0, 65536, 60_000).astype(np.uint16)
+    enc = (np.array([ord(c) for c in "dragon"]) - 16).astype(np.uint16)
+    for pos in (17, 30_000, len(data) - 6):
+        data[pos : pos + 6] = enc
+    path = tmp_path / "be16.bin"
+    path.write_bytes(data.astype(">u2").tobytes())
+    cfg = SearchConfig(
+        file_path=path, keyword="dragon", element_width=2,
+        endianness=Endianness.BIG, device_chunk_bytes=16_384,
+        host_latency_threshold_bytes=0,
+    )
+    scan_cuda.reset_launch_counts()
+    res_gpu = SearchEngine(cfg, device="cuda").run()
+    assert scan_cuda.launch_counts["tile_counts"] > 0
+    assert scan_cuda.launch_counts["gather_tiles"] > 0
+    res_cpu = SearchEngine(cfg, device="cpu").run()
+    assert [r.offset for r in res_gpu] == [r.offset for r in res_cpu]
+    assert [r.values_map for r in res_gpu] == [r.values_map for r in res_cpu]
+    assert [r.offset for r in res_gpu] == [34, 60_000, 2 * (len(data) - 6)]

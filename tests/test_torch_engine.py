@@ -1,0 +1,250 @@
+"""The PyTorch port's engine (``SearchEngine(cfg, device="cpu")``, which runs
+the kernels' plain versions) against the JAX package's engine on the same
+small files, forced onto the device route (``host_latency_threshold_bytes
+= 0``): identical offsets, values maps and progress callbacks, and the
+same backend-independent ``SearchStats`` counts.  Cases follow
+``tests/test_engine.py`` (the reference's engine corpora, the ramp that
+overflows the fused step, the pipelined resident path).
+
+Also: the port never loads jax, the default (CUDA) device raises without a
+card, and ``chip_smoke.py`` fails without one.
+
+Tolerance: exact equality throughout — every value is an integer.
+"""
+
+import os
+import subprocess
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from monkey_moore_tpu.config import (
+    Endianness,
+    MatchSemantics,
+    SearchConfig,
+    SearchStep,
+)
+from monkey_moore_tpu.engine import SearchEngine as JaxEngine
+from monkey_moore_tpu_torch.engine import SearchEngine
+from test_engine import (
+    FILE_DATA_8,
+    FILE_DATA_16,
+    text_u8,
+    text_u16,
+    write_file,
+)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+STATS = ("hot_tiles", "candidates", "fused_steps", "fused_fallbacks",
+         "device_dispatches", "bytes_scanned", "chunks", "d2h_bytes",
+         "h2d_bytes")
+
+
+def _run(engine):
+    seen = []
+    res = engine.run(on_progress=lambda pct, step: seen.append((pct, step)))
+    return res, seen
+
+
+def assert_same_as_jax(cfg):
+    """Run both engines on ``cfg``; returns the port's results."""
+    jax_engine = JaxEngine(cfg)
+    j_res, j_prog = _run(jax_engine)
+    port = SearchEngine(cfg, device="cpu")
+    t_res, t_prog = _run(port)
+    assert [r.offset for r in t_res] == [r.offset for r in j_res]
+    assert [r.values_map for r in t_res] == [r.values_map for r in j_res]
+    assert t_prog == j_prog
+    for name in STATS:
+        assert getattr(port.last_stats, name) == getattr(
+            jax_engine.last_stats, name), name
+    assert not port.last_stats.host_routed
+    assert port.last_stats.device_dispatches > 0
+    return t_res
+
+
+@pytest.mark.parametrize("chunk", [64, 16_384])
+@pytest.mark.parametrize("semantics", [MatchSemantics.GREEDY,
+                                       MatchSemantics.ALL])
+def test_reference_corpus_8bit(tmp_path, chunk, semantics):
+    cfg = SearchConfig(
+        file_path=write_file(tmp_path, FILE_DATA_8), keyword="text",
+        preferred_search_block_size=23, device_chunk_bytes=chunk,
+        semantics=semantics, host_latency_threshold_bytes=0,
+    )
+    res = assert_same_as_jax(cfg)
+    assert [r.offset for r in res] == [0, 9, 27, 50, 60]
+
+
+@pytest.mark.parametrize("endianness", [Endianness.LITTLE, Endianness.BIG])
+@pytest.mark.parametrize("chunk", [64, 16_384])
+def test_reference_corpus_16bit(tmp_path, endianness, chunk):
+    kind = "<u2" if endianness is Endianness.LITTLE else ">u2"
+    cfg = SearchConfig(
+        file_path=write_file(tmp_path, FILE_DATA_16.astype(kind)),
+        keyword="text", element_width=2, endianness=endianness,
+        preferred_search_block_size=47, device_chunk_bytes=chunk,
+        host_latency_threshold_bytes=0,
+    )
+    res = assert_same_as_jax(cfg)
+    assert [r.offset for r in res] == [0, 18, 54, 100, 120]
+
+
+@pytest.mark.parametrize("semantics", [MatchSemantics.ALL,
+                                       MatchSemantics.GREEDY])
+def test_ramp_overflow_fallback(tmp_path, semantics):
+    # ``tests/test_engine.py:403``: a byte ramp matches "abcde" at nearly
+    # every window, overflowing p_cap — every chunk takes the fallback
+    data = (np.arange(8192) & 0xFF).astype(np.uint8)
+    cfg = SearchConfig(
+        file_path=write_file(tmp_path, data), keyword="abcde",
+        device_chunk_bytes=4096, semantics=semantics,
+        host_latency_threshold_bytes=0,
+    )
+    res = assert_same_as_jax(cfg)
+    assert len(res) > 1000
+    assert SearchEngine(cfg, device="cpu").run() == res
+
+
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("resident", [True, False])
+def test_pipelined_chunks(tmp_path, width, resident):
+    # ``tests/test_engine.py:514``: many 16 KiB chunks, two steps in flight;
+    # resident_bytes_limit=0 takes the streaming (per-chunk upload) branch
+    rng = np.random.default_rng(11)
+    dtype = np.uint8 if width == 1 else np.uint16
+    data = rng.integers(0, 1 << (8 * width), 120_000).astype(dtype)
+    enc = (text_u8 if width == 1 else text_u16)("monkey", 3)
+    for pos in (0, 30_001, 59_999, 90_000, len(data) - 6):
+        data[pos : pos + 6] = enc.astype(dtype)
+    cfg = SearchConfig(
+        file_path=write_file(tmp_path, data.astype(f"<u{width}")),
+        keyword="monkey", element_width=width, device_chunk_bytes=16_384,
+        host_latency_threshold_bytes=0, pipeline_depth=2,
+        resident_bytes_limit=(12 << 30) if resident else 0,
+    )
+    res = assert_same_as_jax(cfg)
+    assert [r.offset for r in res] == [
+        0, 30_001 * width, 59_999 * width, 90_000 * width,
+        (len(data) - 6) * width,
+    ]
+
+
+def test_wildcard_16bit_big_endian(tmp_path):
+    rng = np.random.default_rng(6)
+    data = rng.integers(0, 65536, 80_000).astype(np.uint16)
+    enc = text_u16("dra?on", -16)
+    enc[3] = 12345  # wildcard position: arbitrary value
+    for pos in (17, 40_000, len(data) - 6):
+        data[pos : pos + 6] = enc
+    cfg = SearchConfig(
+        file_path=write_file(tmp_path, data.astype(">u2").view(np.uint8)),
+        keyword="dra?on", wildcard="?", element_width=2,
+        endianness=Endianness.BIG, device_chunk_bytes=16_384,
+        host_latency_threshold_bytes=0,
+    )
+    res = assert_same_as_jax(cfg)
+    assert 34 in [r.offset for r in res]
+
+
+def test_all_wildcard_keyword(tmp_path):
+    data = np.random.default_rng(7).integers(0, 256, 700).astype(np.uint8)
+    cfg = SearchConfig(
+        file_path=write_file(tmp_path, data), keyword="a***",
+        device_chunk_bytes=256, host_latency_threshold_bytes=0,
+    )
+    assert len(assert_same_as_jax(cfg)) > 100
+
+
+def test_abort_mid_pipeline(tmp_path):
+    flag = threading.Event()
+
+    def saboteur(pct, step):
+        if step is SearchStep.SEARCHING and pct >= 40:
+            flag.set()
+
+    cfg = SearchConfig(
+        file_path=write_file(tmp_path, np.zeros(200_000, dtype=np.uint8)),
+        keyword="never", device_chunk_bytes=16_384,
+        host_latency_threshold_bytes=0, pipeline_depth=3,
+    )
+    engine = SearchEngine(cfg, device="cpu")
+    assert engine.run(on_progress=saboteur, abort_flag=flag) == []
+
+
+def test_unported_routes_raise(tmp_path):
+    cfg = SearchConfig(file_path=write_file(tmp_path, FILE_DATA_8),
+                       keyword="text", host_latency_threshold_bytes=0)
+    with pytest.raises(NotImplementedError):
+        SearchEngine(cfg, device="cpu").run(distributed=True)
+    cfg.devices = ["cpu:0", "cpu:1"]
+    with pytest.raises(NotImplementedError):
+        SearchEngine(cfg, device="cpu").run()
+    with pytest.raises(RuntimeError):
+        SearchEngine(cfg, device="meta")
+
+
+def test_device_trace_writes_a_trace(tmp_path, monkeypatch):
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("MMTPU_TRACE_DIR", str(trace_dir))
+    cfg = SearchConfig(file_path=write_file(tmp_path, FILE_DATA_8),
+                       keyword="text", host_latency_threshold_bytes=0)
+    res = SearchEngine(cfg, device="cpu").run()
+    assert [r.offset for r in res] == [0, 9, 27, 50, 60]
+    assert len(list(trace_dir.glob("trace_*.json"))) == 1
+
+
+def test_probe_reports_without_cuda():
+    from monkey_moore_tpu_torch.ops.probe import probe
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    got = probe()
+    assert got.cuda is False and got.library is None
+
+
+def test_default_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SearchEngine(SearchConfig(keyword="text"))
+
+
+_NO_JAX = """
+import sys
+from monkey_moore_tpu.config import SearchConfig
+from monkey_moore_tpu_torch.engine import SearchEngine
+cfg = SearchConfig(file_path=sys.argv[1], keyword="text",
+                   device_chunk_bytes=64, host_latency_threshold_bytes=0)
+offsets = [r.offset for r in SearchEngine(cfg, device="cpu").run()]
+assert offsets == [0, 9, 27, 50, 60], offsets
+assert "jax" not in sys.modules, "the port loaded jax"
+print("no-jax ok")
+"""
+
+
+def test_port_never_imports_jax(tmp_path):
+    path = write_file(tmp_path, FILE_DATA_8)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX, str(path)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "no-jax ok" in proc.stdout
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the smoke run would start")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
