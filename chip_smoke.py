@@ -7,17 +7,25 @@
 2. builds the CUDA kernels from ``monkey_moore_tpu_torch/csrc/``;
 3. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at a tiny tile, exactly (all values are
-   integers), and times both;
+   integers), and times both (the keyword-batch kernel at K = 8);
 4. writes a 1 GiB file of seeded random bytes with planted keywords and
    searches it through ``monkey_moore_tpu_torch.engine.SearchEngine`` with
    default settings (the resident device route): an 8-bit keyword, an
    8-bit wildcard keyword planted often enough to overflow the fused step,
    and a 16-bit big-endian keyword.  Every planted offset must be found,
-   and results must equal the same engine's host route.
+   and results must equal the same engine's host route;
+5. searches the same file for two keyword batches through
+   ``monkey_moore_tpu_torch.multi.MultiSearcher``: 8 8-bit keywords (the
+   overflowing wildcard keyword among them) and 3 16-bit big-endian ones.
+   Every planted offset must be found, each keyword's results must equal
+   those of ``SearchEngine`` (phase 4's entry point) run on that keyword
+   alone, and the batches must go through the keyword-batch kernel and
+   never the single-keyword one.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the card's ``nvidia-smi`` name and power limit, and before that a JSON
-object with each kernel's launches on the main path, its largest
+Each path runs with the launch counts set to 0 just before it and read
+just after.  The last line is ``{"ok": true, "device": {...}}``; the line
+before it is the card's ``nvidia-smi`` name and power limit, and before
+that a JSON object with each kernel's launches on its paths, its largest
 difference from the plain version, and both times.  Any failure exits
 non-zero before those lines.  Without a CUDA card it exits 1 at once.
 """
@@ -152,6 +160,7 @@ def kernel_phase(torch):
           f"{a_plain_ms:.4f} ms plain; B == plain (k_cap 1/32/128): "
           f"{b_ms:.4f} ms vs {b_plain_ms:.4f} ms plain at k_cap=32",
           flush=True)
+    err_c, c_ms, c_plain_ms = multi_kernel_phase(torch, gen)
     return [
         {"name": "tile_counts", "route": "cuda",
          "source": "monkey_moore_tpu_torch/csrc/tile_counts.cu",
@@ -161,12 +170,78 @@ def kernel_phase(torch):
          "source": "monkey_moore_tpu_torch/csrc/gather_tiles.cu",
          "replaces": "monkey_moore_tpu/ops/scan_pallas.py:245",
          "max_abs_err": err_b, "ms": b_ms, "plain_ms": b_plain_ms},
+        {"name": "tile_counts_multi", "route": "cuda",
+         "source": "monkey_moore_tpu_torch/csrc/tile_counts_multi.cu",
+         "replaces": "monkey_moore_tpu/ops/scan_pallas.py:838",
+         "max_abs_err": err_c, "ms": c_ms, "plain_ms": c_plain_ms},
     ]
 
 
+#: the K = 8 batch of the keyword-batch kernel check: canonical plain
+#: keywords, a wildcard, a leading wildcard and a 12-character keyword
+MULTI_KERNEL_BATCH = [
+    ("monkey", 0), ("dr*gon", "*"), ("?bcde", "?"), ("abcdefghijkl", 0),
+    ("sword", 0), ("shield", 0), ("potion", 0), ("castle", 0),
+]
+
+
+def multi_kernel_phase(torch, gen):
+    """Phase 3, keyword-batch kernel (C) against its plain version at
+    K = 8: u8 and u16, a 512 MiB chunk at the main path's tile and ten
+    8192-element tiles; each keyword planted at the start and across a tile
+    edge, the last one also at its last valid window.  Returns (largest
+    difference, kernel ms, plain ms) at the u8 512 MiB chunk."""
+    import numpy as np
+
+    from monkey_moore_tpu.pattern import compile_pattern
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    err = 0
+    c_ms = c_plain_ms = None
+    for width in (1, 2):
+        dtype = np.uint8 if width == 1 else np.uint16
+        pats = [compile_pattern(kw, wc, dtype=dtype)
+                for kw, wc in MULTI_KERNEL_BATCH]
+        for te, n_tiles in ((TE, CHUNK // (TE * width)), (8192, 10)):
+            words = random_words(torch, gen, (n_tiles + 1) * te * width)
+            valid = n_tiles * te - (1234 % te)
+            plants = [[1 + 64 * i, (i + 1) * te - 2]
+                      for i in range(len(pats))]
+            plants[-1].append(valid - pats[-1].length)
+            for i, (pat, pos) in enumerate(zip(pats, plants)):
+                plant_words(torch, words, pat, pos, 3 + i)
+            table, last_starts = scan_cuda.multi_operand(pats, valid, "cuda")
+            args = dict(width=width, tile_elems=te)
+            got = scan_cuda.tile_counts_multi(words, table, last_starts,
+                                              **args)
+            want = scan_cuda.tile_counts_multi_plain(words, table,
+                                                     last_starts, **args)
+            check(got.shape == want.shape == (len(pats), n_tiles),
+                  "kernel C shape")
+            err = max(err, int((got - want).abs().max()))
+            hit = want.cpu().numpy()
+            check(all(hit[k, p // te] > 0 for k, pos in enumerate(plants)
+                      for p in pos), "kernel C plants")
+            if te == TE and width == 1:
+                c_ms = time_ms(torch, lambda: scan_cuda.tile_counts_multi(
+                    words, table, last_starts, **args), 20)
+                c_plain_ms = time_ms(
+                    torch, lambda: scan_cuda.tile_counts_multi_plain(
+                        words, table, last_starts, **args), 5)
+            del words, got, want
+            torch.cuda.empty_cache()
+    check(err == 0, f"kernel C differs from its plain version by {err}")
+    print(f"phase 3 kernels: C == plain (K=8, u8/u16, te={TE} over "
+          f"{CHUNK // MIB} MiB and te=8192): {c_ms:.4f} ms vs "
+          f"{c_plain_ms:.4f} ms plain at u8", flush=True)
+    return err, c_ms, c_plain_ms
+
+
 def write_corpus(path: Path):
-    """1 GiB of seeded random bytes with the three searches' plants;
-    returns {name: (config kwargs, planted byte offsets)}."""
+    """1 GiB of seeded random bytes with the plants of phase 4's three
+    searches and of phase 5's batches; returns phase 4's searches,
+    {name: (config kwargs, planted byte offsets)}, and phase 5's batches,
+    {name: (MultiSearcher kwargs, [(spec, planted byte offsets)])}."""
     import numpy as np
 
     from monkey_moore_tpu.config import Endianness
@@ -195,12 +270,41 @@ def write_corpus(path: Path):
     for off in be16:
         put(off, kw3.view(np.uint8))
 
+    # phase 5's other keywords, away from the plants above
+    batch8 = [("monkey", plain8),
+              ({"keyword": "dr*gon", "wildcard": "*"}, wild8)]
+    for i, (word, offs) in enumerate((
+        ("sword", [50_000, 333_333_333, 1_073_000_000]),
+        ("shield", [60_000, 444_444_444]),
+        ("potion", [70_000, 555_555_555, 1_070_000_003]),
+        ("?rincess", [80_000, 666_666_666]),
+        ("treasurechest", [90_000, 777_777_777]),
+        ("wizard", []),
+    )):
+        kw = (np.array([ord(c) for c in word]) + 11 + i).astype(np.uint8)
+        lead = word[0] == "?"
+        for off in offs:
+            if lead:
+                kw[0] = off % 251  # the leading wildcard holds anything
+            put(off, kw)
+        spec = {"keyword": word, "wildcard": "?"} if lead else word
+        batch8.append((spec, offs))
+    kw4 = (np.array([ord(c) for c in "knight"]) + 0x4100).astype(">u2")
+    knight = [3000, 300_000_001, 700_000_000, 1_000_000_101]
+    for off in knight:
+        put(off, kw4.view(np.uint8))
+    batch16 = [("castle", be16), ("knight", knight), ("dungeon", [])]
+
     data.tofile(path)
     return {
         "8-bit": (dict(keyword="monkey"), plain8),
         "8-bit wildcard": (dict(keyword="dr*gon", wildcard="*"), wild8),
         "16-bit BE": (dict(keyword="castle", element_width=2,
                            endianness=Endianness.BIG), be16),
+    }, {
+        "8-bit batch": ({}, batch8),
+        "16-bit BE batch": (dict(element_width=2,
+                                 endianness=Endianness.BIG), batch16),
     }
 
 
@@ -212,7 +316,7 @@ def slice_phase(torch, workdir: Path):
 
     path = workdir / "corpus.bin"
     t0 = time.perf_counter()
-    searches = write_corpus(path)
+    searches, batches = write_corpus(path)
     print(f"phase 4 corpus: {FILE_BYTES // MIB} MiB written in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -260,6 +364,61 @@ def slice_phase(torch, workdir: Path):
     check(launches["tile_counts"] > 0 and launches["gather_tiles"] > 0,
           f"kernels not launched on the main path: {launches}")
     print(f"phase 4 launches on the main path: {launches}", flush=True)
+    return launches, path, batches
+
+
+def batch_phase(torch, path: Path, batches):
+    """Phase 5: the keyword batches through ``MultiSearcher``, each run
+    twice (the first search uploads the file), then every keyword through
+    the engine alone for comparison."""
+    from monkey_moore_tpu_torch.corpus import clear_corpus_cache
+    from monkey_moore_tpu_torch.engine import SearchEngine
+    from monkey_moore_tpu_torch.multi import MultiSearcher
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    clear_corpus_cache()
+    batch_results = {}
+    scan_cuda.reset_launch_counts()
+    for name, (kwargs, planted) in batches.items():
+        ms = MultiSearcher(path, device="cuda", **kwargs)
+        specs = [spec for spec, _ in planted]
+        runs = [timed(lambda: ms.search(specs)) for _ in range(2)]
+        check(runs[0][0] == runs[1][0], f"{name}: repeat differs")
+        batch_results[name] = (ms, runs[0][0], [t for _, t in runs])
+    launches = dict(scan_cuda.launch_counts)
+    check(launches["tile_counts_multi"] > 0 and launches["gather_tiles"] > 0,
+          f"kernels not launched on the batch path: {launches}")
+    check(launches["tile_counts"] == 0,
+          f"the batch path launched the single-keyword kernel: {launches}")
+    print(f"phase 5 launches on the batch path: {launches}", flush=True)
+
+    for name, (kwargs, planted) in batches.items():
+        ms, results, times = batch_results[name]
+        single_times = []
+        for (spec, offs), got in zip(planted, results):
+            label = spec if isinstance(spec, str) else spec["keyword"]
+            found = [r.offset for r in got]
+            missing = sorted(set(offs) - set(found))
+            check(not missing, f"{name} {label!r}: not found: {missing}")
+            engine = SearchEngine(ms._config(spec), device="cuda")
+            (single, t_first), (_, t_repeat) = (
+                timed(engine.run), timed(engine.run))
+            single_times.append((t_first, t_repeat))
+            check([(r.offset, r.values_map) for r in got]
+                  == [(r.offset, r.values_map) for r in single],
+                  f"{name} {label!r}: differs from the engine alone")
+        counts = [len(g) for g in results]
+        print(f"phase 5 {name!r}: K={len(results)}, results {counts} "
+              f"(= engine per keyword), batch first {times[0]:.3f} s, "
+              f"repeat {times[1]:.3f} s; K single searches first "
+              f"{sum(t for t, _ in single_times):.3f} s, repeat "
+              f"{sum(t for _, t in single_times):.3f} s", flush=True)
     return launches
 
 
@@ -285,9 +444,13 @@ def main() -> int:
 
     kernels = kernel_phase(torch)
     with tempfile.TemporaryDirectory(prefix="mm_chip_smoke_") as tmp:
-        launches = slice_phase(torch, Path(tmp))
+        search_launches, path, batches = slice_phase(torch, Path(tmp))
+        batch_launches = batch_phase(torch, path, batches)
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        by_path = {"search": search_launches[row["name"]],
+                   "batch": batch_launches[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

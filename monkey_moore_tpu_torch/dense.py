@@ -9,11 +9,15 @@ host — the step's only sync point — and decodes offsets and recovery
 values.  When more than ``k_cap`` tiles are hot or more than ``p_cap``
 candidates match, the finish fetches the full counts and runs the batched
 host extraction instead (:func:`extract_hot_tiles_device`).
+
+:func:`fused_count_extract_multi` is the keyword-batch step of
+``multi.MultiSearcher``: one pass of kernel C counts every keyword, then
+each keyword's hot tiles take the same gather and exact phase 2.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +28,7 @@ from monkey_moore_tpu.pattern import CompiledPattern
 
 from .ops.host import (
     _EMPTY,
+    LANES,
     TILE_ELEMS,
     FusedInfo,
     _combo_info,
@@ -31,8 +36,13 @@ from .ops.host import (
     _parse_combo,
     _prefilter_sel,
     auto_k_cap,
+    canonical_check_tables,
 )
-from .ops.scan_cuda import prefilter_operand, tile_counts_gather
+from .ops.scan_cuda import (
+    prefilter_operand,
+    tile_counts_gather,
+    tile_counts_multi_gather,
+)
 from .ops.scan_cuda import tile_counts as _kernel_tile_counts
 
 __all__ = [
@@ -44,6 +54,8 @@ __all__ = [
     "fused_count_extract_start",
     "fused_count_extract_finish",
     "fused_count_extract",
+    "fused_multi_eligible",
+    "fused_count_extract_multi",
     "extract_hot_tiles_device",
 ]
 
@@ -163,28 +175,35 @@ def fused_count_extract_finish(
     counts and the batched hot-tile fetch."""
     if pending.eager is not None:
         return pending.eager
-    combo = pending.combo_dev.cpu().numpy()
-    k_cap, p_cap = pending.k_cap, pending.p_cap
+    return _decode_step(
+        pending.pat, pending.combo_dev.cpu().numpy(), pending.counts_dev,
+        pending.arr_device, pending.valid_count, pending.tile_elems,
+        pending.grid_offset, pending.k_cap, pending.p_cap,
+    )
+
+
+def _decode_step(pat, combo, counts_dev, arr_device, valid_count,
+                 tile_elems, grid_offset, k_cap, p_cap):
+    """One pattern's fetched combo buffer → ``(offsets, values, info)``; on
+    capacity overflow, fetch its counts and extract on the host."""
     info = _combo_info(combo, k_cap, p_cap)
     if info.hot_tiles == 0:
         return *_EMPTY, info
     if info.fallback:
-        counts_np = pending.counts_dev.cpu().numpy()
+        counts_np = counts_dev.cpu().numpy()
         offs, vals = extract_hot_tiles_device(
-            pending.pat, pending.arr_device, counts_np,
-            pending.valid_count, pending.tile_elems, pending.grid_offset,
+            pat, arr_device, counts_np, valid_count, tile_elems, grid_offset,
         )
         info = info._replace(
             candidates=len(offs),
             d2h_bytes=info.d2h_bytes + counts_np.nbytes
             + _gather_fallback_bytes(
-                pending.pat, int((counts_np > 0).sum()),
-                pending.tile_elems,
+                pat, int((counts_np > 0).sum()), tile_elems
             ),
         )
         return offs, vals, info
     offsets, values = _parse_combo(
-        combo, k_cap, p_cap, pending.tile_elems, pending.grid_offset
+        combo, k_cap, p_cap, tile_elems, grid_offset
     )
     return offsets, values, info
 
@@ -206,6 +225,67 @@ def fused_count_extract(
             grid_offset=grid_offset, k_cap=k_cap, p_cap=p_cap,
         )
     )
+
+
+def fused_multi_eligible(
+    pats: List[CompiledPattern], tile_elems: int = TILE_ELEMS
+) -> bool:
+    """True when :func:`fused_count_extract_multi` runs this batch: the
+    reference's rules (one element width, ``tile_elems`` a multiple of
+    ``8 * LANES``, every pattern with a check, every check shift below
+    ``LANES``), so the port takes the fused route for exactly the batches
+    the TPU does.  The reference's Mosaic compute-mode test has no
+    counterpart here."""
+    width = np.dtype(pats[0].dtype).itemsize
+    if any(np.dtype(p.dtype).itemsize != width for p in pats):
+        return False
+    if tile_elems % (8 * LANES) != 0:
+        return False
+    pair_sets, _, _ = canonical_check_tables(pats)
+    if any(len(prs) == 0 for prs in pair_sets):
+        return False
+    if any(cs >= LANES for prs in pair_sets for cs, _ in prs):
+        return False
+    return True
+
+
+def fused_count_extract_multi(
+    pats: List[CompiledPattern],
+    arr_device: torch.Tensor,
+    valid_count: int,
+    tile_elems: int = TILE_ELEMS,
+    k_cap: int | None = None,
+    p_cap: int = 1024,
+    grid_offset: int = 0,
+) -> List[Tuple[np.ndarray, np.ndarray, FusedInfo]] | None:
+    """Fused phases 1 + 2 for MANY patterns over one chunk of packed words:
+    kernel C counts every pattern in one pass, each pattern's hot tiles are
+    gathered and exactly re-checked on the device, and the K result buffers
+    come back in ONE device→host copy.  Returns ``(offsets, values, info)``
+    per pattern, or None when the batch is not eligible or the chunk is not
+    packed (callers take the element-wise multi count instead).  A pattern
+    whose capacities overflow fetches its counts and runs
+    :func:`extract_hot_tiles_device`."""
+    if not fused_multi_eligible(pats, tile_elems):
+        return None
+    if arr_device.dtype != torch.int32:
+        return None
+    if k_cap is None:
+        _, _, active_list = canonical_check_tables(pats)
+        k_cap = max(
+            auto_k_cap(pat, valid_count, tile_elems,
+                       int(np.count_nonzero(act)))
+            for pat, act in zip(pats, active_list)
+        )
+    counts_dev, combos_dev = tile_counts_multi_gather(
+        pats, arr_device, valid_count, tile_elems, k_cap, p_cap
+    )
+    combos = combos_dev.cpu().numpy().reshape(len(pats), -1)
+    return [
+        _decode_step(pat, combos[k], counts_dev[k], arr_device, valid_count,
+                     tile_elems, grid_offset, k_cap, p_cap)
+        for k, pat in enumerate(pats)
+    ]
 
 
 def extract_hot_tiles_device(

@@ -48,7 +48,20 @@ from .dense import (
 from .ops.host import swar_host_view
 from .profiling import SearchStats, StageTimer, device_trace
 
-__all__ = ["SearchEngine"]
+__all__ = ["SearchEngine", "resolve_device"]
+
+
+def resolve_device(device, owner: str) -> torch.device:
+    """*device* as a ``torch.device``: ``"cuda"`` (the card's kernels; needs
+    a card) or ``"cpu"`` (the kernels' plain versions); anything else
+    raises."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{owner}: CUDA is not available")
+    elif device.type != "cpu":
+        raise RuntimeError(f"{owner}: no kernels for {device}")
+    return device
 
 
 class SearchEngine(_ref.SearchEngine):
@@ -63,12 +76,7 @@ class SearchEngine(_ref.SearchEngine):
 
     def __init__(self, config: SearchConfig, device="cuda"):
         super().__init__(config)
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("SearchEngine: CUDA is not available")
-        elif self.device.type != "cpu":
-            raise RuntimeError(f"SearchEngine: no kernels for {self.device}")
+        self.device = resolve_device(device, "SearchEngine")
 
     # ------------------------------------------------------------------
     def run(

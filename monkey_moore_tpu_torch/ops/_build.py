@@ -1,11 +1,12 @@
 """Build and load the CUDA kernel library.
 
-``csrc/*.cu`` are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, ``_build/libmmtorch_<hash>.so``,
-and loaded with ``ctypes``.  The file name carries a hash of the sources and
-flags, so a library is rebuilt exactly when they change (the style of
-``monkey_moore_tpu/native``'s g++ build).  Nothing is built at import: the
-first call of :func:`load_library` builds, on the machine with the card.
+``csrc/*.cu`` are compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+per source, all started together, and linked into one shared library with a
+plain C interface, ``_build/libmmtorch_<hash>.so``, loaded with ``ctypes``.
+The file name carries a hash of the sources and flags, so a library is
+rebuilt exactly when they change (the style of ``monkey_moore_tpu/native``'s
+g++ build).  Nothing is built at import: the first call of
+:func:`load_library` builds, on the machine with the card.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
+#: compile flags of each source; the objects are then linked with -shared
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 #: C entry points and their ctypes signatures (every pointer and the stream
@@ -41,6 +43,11 @@ _SIGNATURES = {
     "mm_gather_tiles": [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+    ],
+    "mm_tile_counts_multi": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ],
 }
 
@@ -90,16 +97,43 @@ def build_library() -> Path:
         raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    try:
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for cmd in compiles
+        ]
+        try:
+            results = [p.communicate(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for cmd, p, (_, err) in zip(compiles, procs, results):
+            _raise_on_failure(cmd, p.returncode, err)
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              timeout=900)
+        _raise_on_failure(link, proc.returncode, proc.stderr)
+        os.replace(tmp, lib_path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib_path
+
+
+def _raise_on_failure(cmd: List[str], returncode: int, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({returncode}): {' '.join(cmd)}\n{stderr}"
+        )
 
 
 def load_library() -> ctypes.CDLL:

@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from monkey_moore_tpu.ops.recover import recovery_shifts
+from monkey_moore_tpu.ops.scan_np import match_positions_np
 from monkey_moore_tpu.pattern import CompiledPattern
 
 __all__ = [
@@ -28,10 +30,13 @@ __all__ = [
     "prefilter_cap",
     "prefilter_checks",
     "prefilter_check_indices",
+    "canonical_check_tables",
     "wordcmp_run",
     "swar_host_view",
     "auto_k_cap",
     "combo_fields",
+    "multi_pattern_tables",
+    "extract_hot_tiles",
 ]
 
 # ---- from ops/scan_pallas.py ------------------------------------------------
@@ -88,6 +93,63 @@ def prefilter_check_indices(pat, cap: int | None = None) -> np.ndarray:
         key=lambda i: (exp[i] == 0, int(cur[i]) >= _ROW_ELEMS, i),
     )
     return np.asarray(sorted(order[:cap]))
+
+
+def canonical_check_tables(pats):
+    """Selected prefilter checks for a batch of patterns, with simple-mode
+    patterns padded to one canonical shape: ``(pair_sets, exp_list,
+    active_list)`` — pair tuples, element-dtype expected arrays and bool
+    active masks, one per pattern.
+
+    Canonicalizable = the check table is dense from zero (check j uses
+    pair (j+1, j)).  Adjacency alone is NOT enough: a leading-wildcard
+    keyword like "?bcde" compiles to adjacent checks starting at (2, 1),
+    and remapping those onto the canonical table would test windows
+    shifted by the leading-wildcard count."""
+    sel_idx = [prefilter_check_indices(pat) for pat in pats]
+    full_exp = [prefilter_expected(pat) for pat in pats]
+    full_simple = [
+        len(pat.chk_shift_cur) > 0
+        and all(
+            int(c) == j + 1 and int(p) == j
+            for j, (c, p) in enumerate(
+                zip(pat.chk_shift_cur, pat.chk_shift_prev)
+            )
+        )
+        for pat in pats
+    ]
+    # canonical width: smallest pow2 (>=4) covering every simple pattern's
+    # highest selected check position
+    c_max = max(
+        (
+            int(idx[-1]) + 1
+            for idx, is_s in zip(sel_idx, full_simple)
+            if is_s and len(idx)
+        ),
+        default=0,
+    )
+    if c_max:
+        c_max = max(4, 1 << (c_max - 1).bit_length())
+    raw_pairs, raw_exp, raw_active = [], [], []
+    for pat, idx, fexp, is_s in zip(pats, sel_idx, full_exp, full_simple):
+        if is_s:
+            exp = np.zeros(c_max, dtype=fexp.dtype)
+            act = np.zeros(c_max, dtype=bool)
+            exp[idx] = fexp[idx]
+            act[idx] = True
+            raw_pairs.append(tuple((k + 1, k) for k in range(c_max)))
+            raw_exp.append(exp)
+            raw_active.append(act)
+        else:
+            raw_pairs.append(
+                tuple(
+                    (int(pat.chk_shift_cur[j]), int(pat.chk_shift_prev[j]))
+                    for j in idx
+                )
+            )
+            raw_exp.append(fexp[idx])
+            raw_active.append(np.ones(len(idx), dtype=bool))
+    return tuple(raw_pairs), raw_exp, raw_active
 
 
 # ---- from ops/scan_pallas.py ------------------------------------------------
@@ -210,3 +272,61 @@ def _parse_combo(combo, k_cap, p_cap, tile_elems, grid_offset):
     offsets = hot[slot] * tile_elems + rel + grid_offset
     values = np.stack([v0, v1], axis=1).astype(np.int64)
     return offsets, values
+
+
+def multi_pattern_tables(pair_sets, exp_list, active_list):
+    """Rectangular multi-pattern operands from the canonical check tables:
+    ``(pair_sets_padded, expected (K, C) int64, active (K, C) bool)``,
+    padded with inactive ``(1, 0)`` checks.  The numpy part of the
+    reference function: its splat of each expected value to a
+    ``0x01010101`` word and its -1/0 word masks are TPU layout only."""
+    K = len(pair_sets)
+    c_pad = max(len(e) for e in exp_list)
+    exp_mat = np.zeros((K, c_pad), dtype=np.int64)
+    act_mat = np.zeros((K, c_pad), dtype=bool)
+    pair_sets_padded = []
+    for k, (prs, e, a) in enumerate(zip(pair_sets, exp_list, active_list)):
+        exp_mat[k, : len(e)] = e
+        act_mat[k, : len(a)] = a
+        pair_sets_padded.append(
+            tuple(prs) + tuple((1, 0) for _ in range(c_pad - len(prs)))
+        )
+    return pair_sets_padded, exp_mat, act_mat
+
+
+def extract_hot_tiles(
+    pat: CompiledPattern,
+    data: np.ndarray,
+    counts: np.ndarray,
+    tile_elems: int = TILE_ELEMS,
+    grid_offset: int = 0,
+):
+    """Phase 2 on the host: exact offsets + recovery values from the tiles
+    with count > 0 of the host element buffer ``data``."""
+    n = len(data)
+    L = pat.length
+    shifts = recovery_shifts(pat)
+    hot = np.nonzero(counts)[0]
+    all_offsets = []
+    for t in hot.tolist():
+        s0 = t * tile_elems
+        sl = data[s0 : min(n, s0 + tile_elems + L - 1)]
+        pos = match_positions_np(pat, sl)
+        pos = pos[pos < tile_elems] + s0
+        all_offsets.append(pos)
+    if not all_offsets:
+        return np.zeros(0, dtype=np.int64), np.zeros((0, 2), dtype=np.int64)
+    offsets = np.concatenate(all_offsets)
+    values = np.stack(
+        [
+            data[np.minimum(offsets + shifts[0], n - 1)].astype(np.int64),
+            data[
+                np.minimum(
+                    offsets + (shifts[1] if len(shifts) > 1 else shifts[0]),
+                    n - 1,
+                )
+            ].astype(np.int64),
+        ],
+        axis=1,
+    )
+    return offsets + grid_offset, values

@@ -1,12 +1,14 @@
 """The fused device step's kernels — counterpart of the JAX package's
-``ops/scan_pallas.py`` (the main path's part of it).
+``ops/scan_pallas.py`` (the single-device part of it).
 
-Two kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
+Three kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
 
 - :func:`tile_counts` (kernel A, ``csrc/tile_counts.cu``) replaces
   ``scan_pallas._tile_counts_swar_call``;
 - :func:`gather_tiles` (kernel B, ``csrc/gather_tiles.cu``) replaces
-  ``scan_pallas._gather_tiles_dma_call``.
+  ``scan_pallas._gather_tiles_dma_call``;
+- :func:`tile_counts_multi` (kernel C, ``csrc/tile_counts_multi.cu``)
+  replaces ``scan_pallas._tile_counts_swar_multi_call``.
 
 Each wrapper checks its operands, allocates its output, and launches its
 kernel on the current stream for a CUDA tensor, or runs its plain PyTorch
@@ -17,19 +19,21 @@ that it went through the kernels.
 :func:`tile_counts_gather` is the counterpart of ``tile_counts_gather_pallas``
 with ``_swar_counts_gather_call`` and ``_hot_slots_and_combo``: counts,
 hot-tile selection, gather, unpack, exact phase 2 and the combo buffer,
-all enqueued with no host sync.
+all enqueued with no host sync.  :func:`tile_counts_multi_gather` is the
+keyword-batch twin (``_swar_multi_gather_call``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import threading
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from monkey_moore_tpu.pattern import CompiledPattern
 
-from .host import prefilter_checks
+from .host import canonical_check_tables, multi_pattern_tables, prefilter_checks
 from .scan_torch import (
     as_elements,
     count_body,
@@ -50,10 +54,14 @@ __all__ = [
     "gather_tiles",
     "gather_tiles_plain",
     "tile_counts_gather",
+    "multi_operand",
+    "tile_counts_multi",
+    "tile_counts_multi_plain",
+    "tile_counts_multi_gather",
 ]
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
-launch_counts = {"tile_counts": 0, "gather_tiles": 0}
+launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0}
 
 
 def reset_launch_counts() -> None:
@@ -96,21 +104,28 @@ def prefilter_operand(pat: CompiledPattern, device) -> torch.Tensor:
     return cache[key]
 
 
-def _counts_geometry(words, checks, width, tile_elems, valid_count):
+def _tile_geometry(words, width, tile_elems) -> int:
+    """Checks a packed word buffer of T+1 tiles; returns T."""
     _check(words.dtype == torch.int32 and words.dim() == 1
            and words.is_contiguous(),
            "words must be a contiguous 1-D int32 tensor")
     _check(width in (1, 2), f"width must be 1 or 2, got {width}")
-    _check(checks.dtype == torch.int32 and checks.dim() == 2
-           and checks.shape[0] == 3 and checks.is_contiguous()
-           and checks.device == words.device,
-           "checks must be a contiguous (3, C) int32 tensor beside words")
     n_elems = words.numel() * 4 // width
     _check(tile_elems > 0 and n_elems % tile_elems == 0
            and n_elems >= 2 * tile_elems,
            f"{n_elems} elements are not T+1 >= 2 tiles of {tile_elems}")
-    _check(valid_count <= n_elems, "valid_count exceeds the buffer")
     return n_elems // tile_elems - 1
+
+
+def _counts_geometry(words, checks, width, tile_elems, valid_count):
+    n_tiles = _tile_geometry(words, width, tile_elems)
+    _check(checks.dtype == torch.int32 and checks.dim() == 2
+           and checks.shape[0] == 3 and checks.is_contiguous()
+           and checks.device == words.device,
+           "checks must be a contiguous (3, C) int32 tensor beside words")
+    _check(valid_count <= (n_tiles + 1) * tile_elems,
+           "valid_count exceeds the buffer")
+    return n_tiles
 
 
 def tile_counts(
@@ -229,12 +244,23 @@ def tile_counts_gather(
     every window of the slots with the full check tables, and the combo
     buffer packs header, hot ids and counts, candidate offsets and recovery
     values (layout ``host.COMBO_HEADER``)."""
+    counts = tile_counts(
+        words, prefilter_operand(pat, words.device),
+        width=np.dtype(pat.dtype).itemsize, tile_elems=tile_elems,
+        length=pat.length, valid_count=valid_count,
+    )
+    return counts, _hot_slots_and_combo(
+        pat, words, counts, valid_count, tile_elems, k_cap, p_cap
+    )
+
+
+def _hot_slots_and_combo(pat, words, counts, valid_count, tile_elems, k_cap,
+                         p_cap) -> torch.Tensor:
+    """The fused step's tail after the counts (``_hot_slots_and_combo``):
+    the first ``k_cap`` hot tiles gathered with their halo tiles (kernel
+    B), the exact phase 2 over them, and the pattern's combo buffer."""
     width = np.dtype(pat.dtype).itemsize
     L = pat.length
-    counts = tile_counts(
-        words, prefilter_operand(pat, words.device), width=width,
-        tile_elems=tile_elems, length=L, valid_count=valid_count,
-    )
     hot = nonzero_capped(counts, k_cap)
     nhot = (counts > 0).sum(dtype=torch.int32)
     raw = gather_tiles(words, hot, width=width, tile_elems=tile_elems)
@@ -251,4 +277,131 @@ def tile_counts_gather(
         expected=exp_exact, signed_compare=pat.signed_compare,
         recovery=recovery, p_cap=p_cap,
     )
-    return counts, pack_combo(counts, hot, nhot, n_cand, flat_idx, v0, v1)
+    return pack_combo(counts, hot, nhot, n_cand, flat_idx, v0, v1)
+
+
+_multi_memo: dict = {}
+_multi_memo_lock = threading.Lock()
+
+
+def multi_operand(
+    pats: List[CompiledPattern], valid_count: int, device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C's operands for a keyword batch on *device*: the ``(K, 4, C)``
+    int32 check table (rows ``cur``, ``prev``, ``expected`` in the element
+    dtype, ``active`` 1/0, from :func:`host.canonical_check_tables` padded
+    by :func:`host.multi_pattern_tables`) and ``last_start = valid_count -
+    length`` as int64[K].  Memoized per (batch, valid count, device) as the
+    reference's ``_MULTI_MEMO``: a batch re-scanned chunk after chunk
+    uploads its operands once (``compile_pattern`` memoizes, so identical
+    keywords give identical pattern objects; the memo holds them, so ids
+    stay stable)."""
+    key = (tuple(id(p) for p in pats), valid_count, str(torch.device(device)))
+    with _multi_memo_lock:
+        hit = _multi_memo.get(key)
+    if hit is not None:
+        return hit[1:]
+    pair_sets, exp_list, active_list = canonical_check_tables(pats)
+    pairs_padded, exp_mat, act_mat = multi_pattern_tables(
+        pair_sets, exp_list, active_list
+    )
+    table = np.zeros((len(pats), 4, exp_mat.shape[1]), dtype=np.int64)
+    table[:, 0] = [[c for c, _ in prs] for prs in pairs_padded]
+    table[:, 1] = [[p for _, p in prs] for prs in pairs_padded]
+    table[:, 2] = exp_mat
+    table[:, 3] = act_mat
+    operand = (
+        torch.tensor(table, dtype=torch.int32, device=device),
+        torch.tensor([valid_count - p.length for p in pats],
+                     dtype=torch.int64, device=device),
+    )
+    with _multi_memo_lock:
+        if len(_multi_memo) >= 64:
+            _multi_memo.clear()
+        _multi_memo[key] = (tuple(pats), *operand)
+    return operand
+
+
+def tile_counts_multi(
+    words: torch.Tensor,
+    table: torch.Tensor,
+    last_starts: torch.Tensor,
+    *,
+    width: int,
+    tile_elems: int,
+) -> torch.Tensor:
+    """Kernel C: ``(K, T)`` int32 prefilter match counts per pattern and
+    tile, in one pass over ``words`` (packed little-endian words holding
+    ``(T+1) * tile_elems`` u8 or u16 elements).  ``table`` and
+    ``last_starts``: :func:`multi_operand`.  Window start ``e`` of tile
+    ``t`` counts for pattern ``k`` when ``e <= last_starts[k]`` and every
+    active check of row ``k`` holds mod 2^(8*width)."""
+    n_tiles = _tile_geometry(words, width, tile_elems)
+    _check(table.dtype == torch.int32 and table.dim() == 3
+           and table.shape[1] == 4 and table.is_contiguous()
+           and table.device == words.device,
+           "table must be a contiguous (K, 4, C) int32 tensor beside words")
+    K = table.shape[0]
+    _check(last_starts.dtype == torch.int64 and last_starts.shape == (K,)
+           and last_starts.device == words.device,
+           "last_starts must be int64[K] beside words")
+    if not _kernel_device(words):
+        return tile_counts_multi_plain(
+            words, table, last_starts, width=width, tile_elems=tile_elems
+        )
+    from ._build import load_library
+
+    lib = load_library()
+    out = torch.empty((K, n_tiles), dtype=torch.int32, device=words.device)
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mm_tile_counts_multi(
+            words.data_ptr(), n_tiles, tile_elems, width, table.data_ptr(),
+            K, int(table.shape[2]), last_starts.data_ptr(), out.data_ptr(),
+            stream,
+        )
+    _raise_on(rc, "tile_counts_multi")
+    launch_counts["tile_counts_multi"] += 1
+    return out
+
+
+def tile_counts_multi_plain(
+    words, table, last_starts, *, width, tile_elems
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`tile_counts_multi` (reads the table
+    and the limits back to the host)."""
+    x = widen(as_elements(words, width))
+    rows = []
+    for (cur, prev, exp, act), last in zip(table.tolist(),
+                                           last_starts.tolist()):
+        # count_body's limit is valid_count - length: pass last_start, 0
+        rows.append(count_body(x, last, exp, list(zip(cur, prev)), 0,
+                               tile_elems, width, act))
+    return torch.stack(rows)
+
+
+def tile_counts_multi_gather(
+    pats: List[CompiledPattern],
+    words: torch.Tensor,
+    valid_count: int,
+    tile_elems: int,
+    k_cap: int,
+    p_cap: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused phases 1 + 2 for a keyword batch over one grid chunk
+    (``_swar_multi_gather_call``), enqueued with no host sync: kernel C
+    counts every pattern in one pass, then each pattern's hot tiles are
+    gathered (kernel B) and re-checked exactly.  Returns device tensors
+    ``(counts (K, T) int32, combos int32)``: the K per-pattern combo
+    buffers concatenated, the batch's one device→host copy."""
+    table, last_starts = multi_operand(pats, valid_count, words.device)
+    counts = tile_counts_multi(
+        words, table, last_starts, width=np.dtype(pats[0].dtype).itemsize,
+        tile_elems=tile_elems,
+    )
+    return counts, torch.cat([
+        _hot_slots_and_combo(
+            pat, words, counts[k], valid_count, tile_elems, k_cap, p_cap
+        )
+        for k, pat in enumerate(pats)
+    ])

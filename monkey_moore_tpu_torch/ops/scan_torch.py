@@ -29,6 +29,7 @@ __all__ = [
     "as_elements",
     "widen",
     "count_body",
+    "tile_counts_multi",
     "nonzero_capped",
     "exact_phase2",
     "pack_combo",
@@ -92,21 +93,51 @@ def count_body(
     length: int,
     tile_elems: int,
     width: int,
+    active: Sequence[bool] | None = None,
 ) -> torch.Tensor:
     """Per-tile prefilter counts, int32[T] (``scan_jnp._count_body``).
 
     ``x``: int32 element values, ``(T+1) * tile_elems`` of them (T counted
     tiles plus one halo tile).  A window start ``e`` counts when
     ``e <= valid_count - length`` and, for every check, ``(x[e+c] - x[e+p])
-    mod 2^(8*width) == expected``."""
+    mod 2^(8*width) == expected``.  ``active`` (one bool per check) skips
+    the padding checks of a canonical multi-pattern table."""
     counted = x.shape[0] - tile_elems
     mask = (1 << (8 * width)) - 1
+    if active is None:
+        active = [True] * len(pairs)
     ok = torch.ones(counted, dtype=torch.bool, device=x.device)
-    for (c, p), e in zip(pairs, expected):
-        ok &= ((x[c : c + counted] - x[p : p + counted]) & mask) == int(e)
+    for (c, p), e, live in zip(pairs, expected, active):
+        if live:
+            ok &= ((x[c : c + counted] - x[p : p + counted]) & mask) == int(e)
     idx = torch.arange(counted, dtype=torch.int64, device=x.device)
     ok &= idx <= valid_count - length
     return ok.view(-1, tile_elems).sum(dim=1, dtype=torch.int32)
+
+
+def tile_counts_multi(
+    elems: torch.Tensor,
+    valid_count: int,
+    expected_list: Sequence[Sequence[int]],
+    active_list: Sequence[Sequence[bool]],
+    lengths: Sequence[int],
+    *,
+    pair_sets: Sequence[Sequence[Tuple[int, int]]],
+    tile_elems: int,
+) -> Tuple[torch.Tensor, ...]:
+    """Per-tile prefilter counts for MANY patterns
+    (``scan_jnp.tile_counts_multi_xla``): one int32[T] per pattern.
+
+    ``elems``: u8/u16 elements, ``(T+1) * tile_elems`` of them; the
+    per-pattern tables are :func:`host.canonical_check_tables`'."""
+    width = elems.element_size()
+    x = widen(elems)
+    return tuple(
+        count_body(x, valid_count, exp, pairs, length, tile_elems, width, act)
+        for pairs, exp, act, length in zip(
+            pair_sets, expected_list, active_list, lengths
+        )
+    )
 
 
 def nonzero_capped(flat: torch.Tensor, cap: int) -> torch.Tensor:

@@ -78,6 +78,50 @@ def test_gather_tiles_kernel_equals_plain(cuda, k_cap, tile_elems, width):
     assert torch.equal(got.cpu(), want)
 
 
+MULTI_KEYWORDS = [
+    "monkey", "dr*gon", "?bcde", "abcdefghijkl", "sword", "castle", "ab*de",
+    "zyxwv", "?rincess", "treasurechest", "shield", "potion", "b*tter",
+    "knight", "aabcde", "ab",
+]
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("tile_elems,n_tiles", [(64, 40), (262_144, 6)])
+def test_tile_counts_multi_kernel_equals_plain(cuda, k, width, tile_elems,
+                                               n_tiles):
+    rng = np.random.default_rng(4 + k)
+    dtype = np.uint8 if width == 1 else np.uint16
+    pats = [
+        compile_pattern(kw, next((c for c in "?*" if c in kw), 0),
+                        dtype=dtype)
+        for kw in MULTI_KEYWORDS[:k]
+    ]
+    mod = 1 << (8 * width)
+    n_valid = n_tiles * tile_elems - 5
+    arr = np.zeros((n_tiles + 1) * tile_elems, dtype=dtype)
+    arr[:n_valid] = rng.integers(0, mod, n_valid).astype(dtype)
+    for i, pat in enumerate(pats):
+        kw = (np.array(pat.keyword, dtype=np.int64) + i) % mod
+        for pos in (3 * i, (i % (n_tiles - 1) + 1) * tile_elems - 2):
+            arr[pos : pos + pat.length] = kw.astype(dtype)
+    last = pats[-1]
+    arr[n_valid - last.length : n_valid] = (
+        np.array(last.keyword, dtype=np.int64) % mod).astype(dtype)
+    words = torch.from_numpy(arr.view("<i4").copy())
+    table, last_starts = scan_cuda.multi_operand(pats, n_valid, "cpu")
+    args = dict(width=width, tile_elems=tile_elems)
+    want = scan_cuda.tile_counts_multi(words, table, last_starts, **args)
+    before = scan_cuda.launch_counts["tile_counts_multi"]
+    got = scan_cuda.tile_counts_multi(
+        words.to(cuda), table.to(cuda), last_starts.to(cuda), **args)
+    torch.cuda.synchronize()
+    assert scan_cuda.launch_counts["tile_counts_multi"] == before + 1
+    assert got.shape == (k, n_tiles)
+    assert got.cpu().tolist() == want.tolist()
+    assert int(want[-1, -1]) > 0  # the last pattern at its last window
+
+
 def test_engine_cuda_equals_cpu(cuda, tmp_path):
     from monkey_moore_tpu_torch.engine import SearchEngine
 
@@ -101,3 +145,26 @@ def test_engine_cuda_equals_cpu(cuda, tmp_path):
     assert [r.offset for r in res_gpu] == [r.offset for r in res_cpu]
     assert [r.values_map for r in res_gpu] == [r.values_map for r in res_cpu]
     assert [r.offset for r in res_gpu] == [34, 60_000, 2 * (len(data) - 6)]
+
+
+def test_multi_searcher_cuda_equals_cpu(cuda, tmp_path):
+    from monkey_moore_tpu_torch.multi import MultiSearcher
+
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, 300_000).astype(np.uint8)
+    for word, pos in (("sword", 17), ("shield", 150_000),
+                      ("potion", len(data) - 6)):
+        data[pos : pos + len(word)] = [ord(c) + 7 for c in word]
+    path = tmp_path / "rom8.bin"
+    path.write_bytes(data.tobytes())
+    specs = ["sword", {"keyword": "sh*eld", "wildcard": "*"}, "potion",
+             "missing"]
+    scan_cuda.reset_launch_counts()
+    got = MultiSearcher(path, device="cuda").search(specs)
+    assert scan_cuda.launch_counts["tile_counts_multi"] > 0
+    assert scan_cuda.launch_counts["tile_counts"] == 0
+    want = MultiSearcher(path, device="cpu").search(specs)
+    assert [[(r.offset, r.values_map) for r in g] for g in got] == [
+        [(r.offset, r.values_map) for r in g] for g in want]
+    assert [[r.offset for r in g] for g in got] == [
+        [17], [150_000], [len(data) - 6], []]

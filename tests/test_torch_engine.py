@@ -219,10 +219,13 @@ _NO_JAX = """
 import sys
 from monkey_moore_tpu.config import SearchConfig
 from monkey_moore_tpu_torch.engine import SearchEngine
+from monkey_moore_tpu_torch.multi import MultiSearcher
 cfg = SearchConfig(file_path=sys.argv[1], keyword="text",
                    device_chunk_bytes=64, host_latency_threshold_bytes=0)
 offsets = [r.offset for r in SearchEngine(cfg, device="cpu").run()]
 assert offsets == [0, 9, 27, 50, 60], offsets
+batch = MultiSearcher(sys.argv[1], device="cpu").search(["text", "none"])
+assert [r.offset for r in batch[0]] == offsets, batch
 assert "jax" not in sys.modules, "the port loaded jax"
 print("no-jax ok")
 """

@@ -118,6 +118,72 @@ def test_combo_codec_equal(k_cap, p_cap):
             assert vals.tolist() == r_vals.tolist()
 
 
+BATCHES = [
+    ("plain-8", ["abcde", "zyxwv", "sword"], 0, np.uint8),
+    ("mixed-8", ["abcde", "zyxwv", "?bcde", "abcdefghijkl"], "?", np.uint8),
+    ("wild-8", ["dr*gon", "ab*de", "monkey", "a***"], "*", np.uint8),
+    ("zero-diff-8", ["aabcdefgh", "abcd", "ab"], 0, np.uint8),
+    ("mixed-16", ["abcde", "ab*de", "?bcd", "castle"], "*?", np.uint16),
+]
+
+
+def _batch(kws, wc, dtype):
+    def wildcard(kw):
+        return next((c for c in str(wc) if c in kw), 0)
+
+    return [compile_pattern(k, wildcard(k), dtype=dtype) for k in kws]
+
+
+@pytest.mark.parametrize("name,kws,wc,dtype", BATCHES,
+                         ids=[b[0] for b in BATCHES])
+@pytest.mark.parametrize("env", [None, "0"])
+def test_multi_tables_equal(name, kws, wc, dtype, env, monkeypatch):
+    """``canonical_check_tables`` and the numpy part of
+    ``multi_pattern_tables``: the padded pair sets, the expected values
+    (the reference splats them to words) and the active masks (the
+    reference's -1/0 words)."""
+    if env is None:
+        monkeypatch.delenv("MMTPU_PREFILTER_CHECKS", raising=False)
+    else:
+        monkeypatch.setenv("MMTPU_PREFILTER_CHECKS", env)
+    pats = _batch(kws, wc, dtype)
+    got = host.canonical_check_tables(pats)
+    want = scan_jnp.canonical_check_tables(pats)
+    assert got[0] == want[0]
+    for g_list, w_list in zip(got[1:], want[1:]):
+        for g, w in zip(g_list, w_list):
+            assert g.dtype == w.dtype and g.tolist() == w.tolist()
+    width = np.dtype(dtype).itemsize
+    pairs, exp, act = host.multi_pattern_tables(*got)
+    r_pairs, r_exp, r_act = jdense.multi_pattern_tables(*want, width)
+    assert pairs == r_pairs
+    assert exp.dtype == np.int64 and act.dtype == bool
+    ones = 0x01010101 if width == 1 else 0x00010001
+    splat = ((exp * ones) & 0xFFFFFFFF).astype(np.uint32)
+    assert splat.view(np.int32).tolist() == np.asarray(r_exp).tolist()
+    assert np.where(act, -1, 0).tolist() == np.asarray(r_act).tolist()
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("grid_offset", [0, 1000])
+def test_extract_hot_tiles_equal(dtype, grid_offset):
+    rng = np.random.default_rng(9)
+    te = 256
+    for kw, wc in (("abcde", 0), ("ab*de", "*"), ("?bcd", "?")):
+        pat = compile_pattern(kw, wc, dtype=dtype)
+        data = rng.integers(0, 200, 10 * te - 3).astype(dtype)
+        kv = (np.array(pat.keyword, dtype=np.int64) + 3).astype(dtype)
+        for pos in (0, te - 2, 4 * te + 9, len(data) - pat.length):
+            data[pos : pos + pat.length] = kv
+        counts = rng.integers(0, 2, 10).astype(np.int32)
+        counts[[0, 4, 9]] = 1
+        got = host.extract_hot_tiles(pat, data, counts, te, grid_offset)
+        want = jdense.extract_hot_tiles(pat, data, counts, te, grid_offset)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.tolist() == w.tolist()
+        assert len(got[0]) >= 4
+
+
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 def test_swar_host_view_equal(dtype):
     arr = np.random.default_rng(8).integers(0, 60000, 4096).astype(dtype)
