@@ -4,10 +4,14 @@
 ``python3 chip_smoke.py`` from the repository root:
 
 1. prints the environment (torch, the card, its power limit);
-2. builds the CUDA kernels from ``monkey_moore_tpu_torch/csrc/``;
+2. builds the CUDA kernels from ``monkey_moore_tpu_torch/csrc/`` and runs
+   the backend probe, which launches kernels A, D, E and B once each at
+   tiny shapes against their plain versions;
 3. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at a tiny tile, exactly (all values are
-   integers), and times both (the keyword-batch kernel at K = 8);
+   integers), and times both (the keyword-batch kernel at K = 8; the
+   element counts kernel D beside the word counts kernel A on the same
+   bytes, the block gather E beside the gather B on the same ids);
 4. writes a 1 GiB file of seeded random bytes with planted keywords and
    searches it through ``monkey_moore_tpu_torch.engine.SearchEngine`` with
    default settings (the resident device route): an 8-bit keyword, an
@@ -20,7 +24,17 @@
    Every planted offset must be found, each keyword's results must equal
    those of ``SearchEngine`` (phase 4's entry point) run on that keyword
    alone, and the batches must go through the keyword-batch kernel and
-   never the single-keyword one.
+   never the single-keyword one;
+6. runs the in-memory API, ``dense_search`` and ``dense_candidates`` of
+   ``monkey_moore_tpu_torch.dense`` on the card, over the file as a 1 GiB
+   u8 array (phase 4's 8-bit keywords) and as its 512 Mi-element 16-bit
+   big-endian grid (the 16-bit keyword): every plant found, candidates
+   equal to the C host scanner's, GREEDY results equal to its candidates
+   after suppression and recovery, through kernel D and never kernel A;
+7. repeats phase 4's searches through the engine's streaming branch (the
+   residency limit below the file size): each chunk is uploaded as
+   elements and scanned by kernels D and E, never A or B, and the results
+   must equal phase 4's.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -107,74 +121,120 @@ def kernel_phase(torch):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    err_a = err_b = 0
-    a_ms = a_plain_ms = b_ms = b_plain_ms = None
+    err = {"A": 0, "B": 0, "D": 0, "E": 0}
+    ms = {}
     for width in (1, 2):
         dtype = np.uint8 if width == 1 else np.uint16
+        elem_dtype = torch.uint8 if width == 1 else torch.uint16
         for kw, wc in (("abcde", 0), ("ab*de", "*")):
             pat = compile_pattern(kw, wc, dtype=dtype)
             checks = scan_cuda.prefilter_operand(pat, "cuda")
             for te, n_tiles in ((TE, CHUNK // (TE * width)), (8, 4096)):
                 words = random_words(torch, gen, (n_tiles + 1) * te * width)
+                elems = words.view(elem_dtype)  # the same allocation
                 valid = n_tiles * te - (1234 % te)
                 plants = [1, 2 * te - 2, (n_tiles // 2) * te + 7,
                           valid - pat.length]
                 plant_words(torch, words, pat, plants, 3)
-                args = dict(width=width, tile_elems=te, length=pat.length,
+                args = dict(tile_elems=te, length=pat.length,
                             valid_count=valid)
-                got = scan_cuda.tile_counts(words, checks, **args)
-                want = scan_cuda.tile_counts_plain(words, checks, **args)
+                got = scan_cuda.tile_counts(words, checks, width=width,
+                                            **args)
+                want = scan_cuda.tile_counts_plain(words, checks,
+                                                   width=width, **args)
                 check(got.shape == want.shape, "kernel A shape")
-                err_a = max(err_a, int((got - want).abs().max()))
+                err["A"] = max(err["A"], int((got - want).abs().max()))
                 check(int(want.sum()) >= len(plants), "kernel A plants")
+                got_d = scan_cuda.tile_counts_elems(elems, checks, **args)
+                want_d = scan_cuda.tile_counts_elems_plain(elems, checks,
+                                                           **args)
+                check(got_d.shape == want.shape, "kernel D shape")
+                err["D"] = max(err["D"], int((got_d - want_d).abs().max()))
+                check(torch.equal(want_d, want),
+                      "the plain versions of kernels A and D differ")
                 if te == TE and width == 1 and kw == "abcde":
-                    a_ms = time_ms(
-                        torch, lambda: scan_cuda.tile_counts(
-                            words, checks, **args), 20)
-                    a_plain_ms = time_ms(
+                    # A and D on the same bytes: word view, element view
+                    ms["A"] = time_ms(torch, lambda: scan_cuda.tile_counts(
+                        words, checks, width=1, **args), 20)
+                    ms["D"] = time_ms(
+                        torch, lambda: scan_cuda.tile_counts_elems(
+                            elems, checks, **args), 20)
+                    ms["A plain"] = time_ms(
                         torch, lambda: scan_cuda.tile_counts_plain(
-                            words, checks, **args), 5)
+                            words, checks, width=1, **args), 5)
+                    ms["D plain"] = time_ms(
+                        torch, lambda: scan_cuda.tile_counts_elems_plain(
+                            elems, checks, **args), 5)
                 if te == TE and kw == "abcde":
-                    for k_cap in (1, 32, 128):
-                        hot = nonzero_capped(got, k_cap)
-                        hot[k_cap // 2 :] = hot[0].clone()  # duplicate ids
-                        gargs = dict(width=width, tile_elems=te)
-                        g = scan_cuda.gather_tiles(words, hot, **gargs)
-                        p = scan_cuda.gather_tiles_plain(words, hot, **gargs)
-                        err_b = max(err_b, int(
-                            (g.to(torch.int16) - p.to(torch.int16))
-                            .abs().max()))
-                        if k_cap == 32 and width == 1:
-                            b_ms = time_ms(torch, lambda: scan_cuda
-                                           .gather_tiles(words, hot, **gargs),
-                                           50)
-                            b_plain_ms = time_ms(torch, lambda: scan_cuda
-                                                 .gather_tiles_plain(
-                                                     words, hot, **gargs), 10)
-                del words, got, want
+                    gather_checks(torch, scan_cuda, nonzero_capped, words,
+                                  elems, got, width, te, err, ms)
+                del words, elems, got, want, got_d, want_d
                 torch.cuda.empty_cache()
-    check(err_a == 0, f"kernel A differs from its plain version by {err_a}")
-    check(err_b == 0, f"kernel B differs from its plain version by {err_b}")
-    print(f"phase 3 kernels: A == plain (u8/u16, abcde/ab*de, te={TE} "
-          f"over {CHUNK // MIB} MiB and te=8): {a_ms:.4f} ms vs "
-          f"{a_plain_ms:.4f} ms plain; B == plain (k_cap 1/32/128): "
-          f"{b_ms:.4f} ms vs {b_plain_ms:.4f} ms plain at k_cap=32",
-          flush=True)
+    for name in err:
+        check(err[name] == 0,
+              f"kernel {name} differs from its plain version by {err[name]}")
+    print(f"phase 3 kernels: A == D == plain (u8/u16, abcde/ab*de, te={TE} "
+          f"over {CHUNK // MIB} MiB and te=8): A {ms['A']:.4f} ms vs "
+          f"{ms['A plain']:.4f} ms plain, D {ms['D']:.4f} ms vs "
+          f"{ms['D plain']:.4f} ms plain on the same u8 buffer; B == E == "
+          f"plain (k_cap 1/32/128): B {ms['B']:.4f} ms vs {ms['B plain']:.4f}"
+          f" ms plain, E {ms['E']:.4f} ms vs {ms['E plain']:.4f} ms plain at "
+          f"k_cap=32", flush=True)
     err_c, c_ms, c_plain_ms = multi_kernel_phase(torch, gen)
+    src = "monkey_moore_tpu_torch/csrc/"
+    tpu = "monkey_moore_tpu/ops/scan_pallas.py:"
     return [
         {"name": "tile_counts", "route": "cuda",
-         "source": "monkey_moore_tpu_torch/csrc/tile_counts.cu",
-         "replaces": "monkey_moore_tpu/ops/scan_pallas.py:612",
-         "max_abs_err": err_a, "ms": a_ms, "plain_ms": a_plain_ms},
+         "source": src + "tile_counts.cu", "replaces": tpu + "612",
+         "max_abs_err": err["A"], "ms": ms["A"], "plain_ms": ms["A plain"]},
         {"name": "gather_tiles", "route": "cuda",
-         "source": "monkey_moore_tpu_torch/csrc/gather_tiles.cu",
-         "replaces": "monkey_moore_tpu/ops/scan_pallas.py:245",
-         "max_abs_err": err_b, "ms": b_ms, "plain_ms": b_plain_ms},
+         "source": src + "gather_tiles.cu", "replaces": tpu + "245",
+         "max_abs_err": err["B"], "ms": ms["B"], "plain_ms": ms["B plain"]},
         {"name": "tile_counts_multi", "route": "cuda",
-         "source": "monkey_moore_tpu_torch/csrc/tile_counts_multi.cu",
-         "replaces": "monkey_moore_tpu/ops/scan_pallas.py:838",
+         "source": src + "tile_counts_multi.cu", "replaces": tpu + "838",
          "max_abs_err": err_c, "ms": c_ms, "plain_ms": c_plain_ms},
+        {"name": "tile_counts_elems", "route": "cuda",
+         "source": src + "tile_counts_elems.cu", "replaces": tpu + "373",
+         "max_abs_err": err["D"], "ms": ms["D"], "plain_ms": ms["D plain"]},
+        {"name": "gather_tiles_block", "route": "cuda",
+         "source": src + "gather_tiles_block.cu", "replaces": tpu + "315",
+         "max_abs_err": err["E"], "ms": ms["E"], "plain_ms": ms["E plain"]},
     ]
+
+
+def gather_checks(torch, scan_cuda, nonzero_capped, words, elems, counts,
+                  width, te, err, ms):
+    """Phase 3, the gathers: B on the word view and E on the element view
+    against their plain versions and each other, byte for byte, at k_cap
+    1, 32 and 128 with duplicate ids; times both at k_cap 32 (u8)."""
+    for k_cap in (1, 32, 128):
+        hot = nonzero_capped(counts, k_cap)
+        hot[k_cap // 2 :] = hot[0].clone()  # duplicate ids
+        b = scan_cuda.gather_tiles(words, hot, width=width, tile_elems=te)
+        b_plain = scan_cuda.gather_tiles_plain(words, hot, width=width,
+                                               tile_elems=te)
+        e = scan_cuda.gather_tiles_block(elems, hot, tile_elems=te)
+        e_plain = scan_cuda.gather_tiles_block_plain(elems, hot,
+                                                     tile_elems=te)
+        e_bytes = e.view(torch.uint8)
+        err["B"] = max(err["B"], int((b.to(torch.int16)
+                                      - b_plain.to(torch.int16)).abs().max()))
+        err["E"] = max(err["E"], int((e_bytes.to(torch.int16)
+                                      - e_plain.view(torch.uint8)
+                                      .to(torch.int16)).abs().max()))
+        check(torch.equal(e_bytes, b), "kernel E differs from kernel B")
+        if k_cap == 32 and width == 1:
+            ms["B"] = time_ms(torch, lambda: scan_cuda.gather_tiles(
+                words, hot, width=1, tile_elems=te), 50)
+            ms["E"] = time_ms(torch, lambda: scan_cuda.gather_tiles_block(
+                elems, hot, tile_elems=te), 50)
+            ms["B plain"] = time_ms(torch, lambda: scan_cuda
+                                    .gather_tiles_plain(
+                                        words, hot, width=1, tile_elems=te),
+                                    10)
+            ms["E plain"] = time_ms(torch, lambda: scan_cuda
+                                    .gather_tiles_block_plain(
+                                        elems, hot, tile_elems=te), 10)
 
 
 #: the K = 8 batch of the keyword-batch kernel check: canonical plain
@@ -364,7 +424,9 @@ def slice_phase(torch, workdir: Path):
     check(launches["tile_counts"] > 0 and launches["gather_tiles"] > 0,
           f"kernels not launched on the main path: {launches}")
     print(f"phase 4 launches on the main path: {launches}", flush=True)
-    return launches, path, batches
+    resident = {name: [(r.offset, r.values_map) for r in results]
+                for name, (results, _, _) in device_results.items()}
+    return launches, path, searches, resident, batches
 
 
 def batch_phase(torch, path: Path, batches):
@@ -422,6 +484,119 @@ def batch_phase(torch, path: Path, batches):
     return launches
 
 
+def memory_phase(torch, path: Path, searches):
+    """Phase 6: the in-memory API (``dense_search`` / ``dense_candidates``
+    on the card) over the 1 GiB file as a u8 array, for phase 4's 8-bit
+    keywords, and over its 16-bit big-endian grid (alignment 0, 512 Mi
+    elements decoded on the host) for the 16-bit keyword.  Candidates must
+    equal the C host scanner's, and GREEDY results its candidates after
+    greedy suppression and recovery."""
+    import numpy as np
+
+    from monkey_moore_tpu.config import Endianness, MatchSemantics
+    from monkey_moore_tpu.ops.recover import recover_from_values
+    from monkey_moore_tpu.ops.scan_host import (
+        decode_grid_host,
+        host_candidates_values,
+    )
+    from monkey_moore_tpu.ops.suppress import greedy_suppress
+    from monkey_moore_tpu.pattern import compile_pattern
+    from monkey_moore_tpu_torch.dense import dense_candidates, dense_search
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    data = np.fromfile(path, dtype=np.uint8)
+    grid16 = decode_grid_host(data, len(data), 2, Endianness.BIG, 0)
+    cases = []
+    for name, (kwargs, planted) in searches.items():
+        if kwargs.get("element_width", 1) == 1:
+            pat = compile_pattern(kwargs["keyword"], kwargs.get("wildcard", 0))
+            cases.append((name, pat, data, planted))
+        else:
+            pat = compile_pattern(kwargs["keyword"], dtype=np.uint16)
+            cases.append((name, pat, grid16,
+                          [off // 2 for off in planted if off % 2 == 0]))
+
+    scan_cuda.reset_launch_counts()
+    found = {}
+    for name, pat, arr, _ in cases:
+        t0 = time.perf_counter()
+        offs, vals = dense_candidates(pat, arr, device="cuda")
+        t_cand = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        greedy = dense_search(pat, arr, MatchSemantics.GREEDY, device="cuda")
+        t_search = time.perf_counter() - t0
+        found[name] = (offs, vals, greedy, t_cand, t_search)
+    launches = dict(scan_cuda.launch_counts)
+    check(launches["tile_counts_elems"] > 0,
+          f"kernel D not launched on the in-memory path: {launches}")
+    check(launches["tile_counts"] == 0,
+          f"the in-memory path launched kernel A: {launches}")
+    print(f"phase 6 launches on the in-memory path: {launches}", flush=True)
+
+    for name, pat, arr, planted in cases:
+        offs, vals, greedy, t_cand, t_search = found[name]
+        missing = sorted(set(planted) - {o for o, _ in greedy})
+        check(not missing, f"memory {name}: planted not found: {missing}")
+        t0 = time.perf_counter()
+        h_offs, h_vals = host_candidates_values(pat, arr)
+        t_host = time.perf_counter() - t0
+        check(offs.tolist() == h_offs.tolist(),
+              f"memory {name}: candidates differ from the host scanner")
+        check(vals.tolist() == h_vals.tolist(),
+              f"memory {name}: recovery values differ from the host scanner")
+        keep = np.isin(h_offs, greedy_suppress(h_offs, pat.advance))
+        want = [(int(o), recover_from_values(pat, v))
+                for o, v in zip(h_offs[keep], h_vals[keep])]
+        check(greedy == want,
+              f"memory {name}: GREEDY differs from the host scanner's")
+        print(f"phase 6 memory {name!r} over {len(arr)} elements: "
+              f"{len(offs)} candidates, {len(greedy)} GREEDY results "
+              f"(= host scanner); dense_candidates {t_cand:.3f} s, "
+              f"dense_search {t_search:.3f} s, host scanner {t_host:.3f} s",
+              flush=True)
+    return launches
+
+
+def stream_phase(torch, path: Path, searches, resident):
+    """Phase 7: phase 4's searches through the engine's streaming branch
+    (``resident_bytes_limit`` below the file size): each chunk is decoded
+    on the host, uploaded as elements and scanned by kernels D and E.
+    Results must equal phase 4's resident results."""
+    from monkey_moore_tpu.config import SearchConfig
+    from monkey_moore_tpu_torch.engine import SearchEngine
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    scan_cuda.reset_launch_counts()
+    runs = {}
+    for name, (kwargs, _) in searches.items():
+        engine = SearchEngine(
+            SearchConfig(file_path=path, resident_bytes_limit=FILE_BYTES // 2,
+                         **kwargs),
+            device="cuda",
+        )
+        t0 = time.perf_counter()
+        results = engine.run()
+        torch.cuda.synchronize()
+        runs[name] = (results, engine.last_stats, time.perf_counter() - t0)
+    launches = dict(scan_cuda.launch_counts)
+    check(launches["tile_counts_elems"] > 0
+          and launches["gather_tiles_block"] > 0,
+          f"kernels D and E not launched on the streaming path: {launches}")
+    check(launches["tile_counts"] == 0 and launches["gather_tiles"] == 0,
+          f"the streaming path launched kernel A or B: {launches}")
+    print(f"phase 7 launches on the streaming path: {launches}", flush=True)
+
+    for name, (results, stats, secs) in runs.items():
+        check(not stats.host_routed and stats.fused_steps > 0
+              and stats.h2d_bytes > 0,
+              f"stream {name}: did not take the streaming device route")
+        check([(r.offset, r.values_map) for r in results] == resident[name],
+              f"stream {name}: results differ from the resident search")
+        print(f"phase 7 stream {name!r}: {len(results)} results (= resident "
+              f"search) in {secs:.3f} s | {stats.summary()}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -436,19 +611,32 @@ def main() -> int:
           f"{torch.version.cuda}), device {name!r}, nvidia-smi: {smi}",
           flush=True)
 
+    from monkey_moore_tpu_torch.ops.probe import probe
+
     t0 = time.perf_counter()
     lib = _build.build_library()
     _build.load_library()
     print(f"phase 2 build: {lib.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    report = probe()
+    check(report.library is not None and len(report.kernels) == 4
+          and all(k.launched and k.matched for k in report.kernels),
+          f"probe: {report}")
+    print("phase 2 probe: " + ", ".join(
+        f"{k.name} launched and matched" for k in report.kernels),
+        flush=True)
 
     kernels = kernel_phase(torch)
     with tempfile.TemporaryDirectory(prefix="mm_chip_smoke_") as tmp:
-        search_launches, path, batches = slice_phase(torch, Path(tmp))
-        batch_launches = batch_phase(torch, path, batches)
+        launches = {}
+        launches["search"], path, searches, resident, batches = slice_phase(
+            torch, Path(tmp))
+        launches["batch"] = batch_phase(torch, path, batches)
+        launches["memory"] = memory_phase(torch, path, searches)
+        launches["stream"] = stream_phase(torch, path, searches, resident)
     for row in kernels:
-        by_path = {"search": search_launches[row["name"]],
-                   "batch": batch_launches[row["name"]]}
+        by_path = {name: counts[row["name"]]
+                   for name, counts in launches.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))

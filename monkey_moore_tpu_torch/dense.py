@@ -1,14 +1,30 @@
-"""Single-device fused search step — counterpart of the JAX package's
-``dense.py`` (its device-route part).
+"""Single-device dense search — counterpart of the JAX package's
+``dense.py``.
 
-One step scans one grid chunk: :func:`fused_count_extract_start` enqueues
-the per-tile prefilter counts (CUDA kernel A), the hot-tile gather (kernel
-B) and the exact phase 2 on the device and returns at once;
-:func:`fused_count_extract_finish` copies the step's combo buffer to the
-host — the step's only sync point — and decodes offsets and recovery
+**In-memory search.** :func:`dense_search` is the equivalent of the
+reference's ``MonkeyMoore<Ty>::search``: a u8/u16 element array in memory
+goes in, ``(offset, equivalency map)`` pairs come out, with GREEDY, ALL or
+REFERENCE semantics.  :func:`two_phase_candidates` (and its alias
+:func:`dense_candidates`) pads the array to whole count tiles, uploads it
+to ``device``, counts per tile on the device (kernel D) and extracts the
+exact offsets of the hot tiles on the host.
+
+**The fused step.** One step scans one grid chunk:
+:func:`fused_count_extract_start` enqueues the per-tile prefilter counts,
+the hot-tile gather and the exact phase 2 on the device and returns at
+once; :func:`fused_count_extract_finish` copies the step's combo buffer to
+the host — the step's only sync point — and decodes offsets and recovery
 values.  When more than ``k_cap`` tiles are hot or more than ``p_cap``
 candidates match, the finish fetches the full counts and runs the batched
 host extraction instead (:func:`extract_hot_tiles_device`).
+
+**Route rule.** The operand picks the kernels, never a probe: packed int32
+words (the resident corpus) go through kernels A and B; any u8/u16 element
+tensor of a pattern with at least one check goes through kernels D and E
+(in-memory arrays, the engine's streaming chunks), whatever its check
+shifts — D stages a whole halo tile, so unlike the TPU kernel it takes
+every shift below the pattern length.  All-wildcard patterns (no check)
+count on the host.
 
 :func:`fused_count_extract_multi` is the keyword-batch step of
 ``multi.MultiSearcher``: one pass of kernel C counts every keyword, then
@@ -17,13 +33,17 @@ each keyword's hot tiles take the same gather and exact phase 2.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+import ctypes
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from monkey_moore_tpu.ops.recover import recovery_shifts
+from monkey_moore_tpu.config import MatchSemantics
+from monkey_moore_tpu.ops.recover import recover_from_values, recovery_shifts
 from monkey_moore_tpu.ops.scan_np import match_positions_np
+from monkey_moore_tpu.ops.suppress import greedy_suppress
+from monkey_moore_tpu.oracle import oracle_search
 from monkey_moore_tpu.pattern import CompiledPattern
 
 from .ops.host import (
@@ -37,10 +57,13 @@ from .ops.host import (
     _prefilter_sel,
     auto_k_cap,
     canonical_check_tables,
+    extract_hot_tiles,
 )
 from .ops.scan_cuda import (
     prefilter_operand,
+    tile_counts_elems,
     tile_counts_gather,
+    tile_counts_gather_elems,
     tile_counts_multi_gather,
 )
 from .ops.scan_cuda import tile_counts as _kernel_tile_counts
@@ -49,6 +72,8 @@ __all__ = [
     "TILE_ELEMS",
     "FusedInfo",
     "FusedPending",
+    "resolve_device",
+    "upload_elements",
     "wants_packed",
     "tile_counts",
     "fused_count_extract_start",
@@ -57,17 +82,65 @@ __all__ = [
     "fused_multi_eligible",
     "fused_count_extract_multi",
     "extract_hot_tiles_device",
+    "two_phase_candidates",
+    "dense_candidates",
+    "dense_search",
 ]
+
+Result = Tuple[int, Dict[int, int]]
+
+
+def resolve_device(device, owner: str) -> torch.device:
+    """*device* as a ``torch.device``: ``"cuda"`` (the card's kernels; needs
+    a card) or ``"cpu"`` (the kernels' plain versions); anything else
+    raises."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{owner}: CUDA is not available")
+    elif device.type != "cpu":
+        raise RuntimeError(f"{owner}: no kernels for {device}")
+    return device
+
+
+def upload_elements(arr: np.ndarray, device, n_elems: int | None = None
+                    ) -> torch.Tensor:
+    """A host u8/u16 element array as a 1-D element tensor of ``n_elems``
+    (default ``len(arr)``) elements on *device*, zero past ``len(arr)``.
+    u16 travels through an int16 view, as ``scan_torch.widen`` reads it."""
+    arr = np.ascontiguousarray(arr)
+    n = len(arr)
+    n_elems = n if n_elems is None else n_elems
+    wide = arr.dtype.itemsize == 2
+    out = torch.empty(n_elems, dtype=torch.int16 if wide else torch.uint8,
+                      device=device)
+    out[n:].zero_()
+    src = arr
+    if n and not arr.flags.writeable:
+        # a read-only array (a memmap, a decoded chunk): torch.from_numpy
+        # warns on it, so alias its memory writably (``arr`` stays alive
+        # and owns it); the copy only reads it
+        alias = (ctypes.c_char * arr.nbytes).from_address(arr.ctypes.data)
+        src = np.frombuffer(alias, dtype=arr.dtype)
+    out[:n].copy_(torch.from_numpy(src.view(np.int16) if wide else src))
+    return out.view(torch.uint16) if wide else out
 
 
 def _packed(pat: CompiledPattern, arr: torch.Tensor) -> bool:
     return arr.dtype == torch.int32 and np.dtype(pat.dtype).itemsize < 4
 
 
+def _check_elements(pat: CompiledPattern, arr: torch.Tensor) -> None:
+    if arr.element_size() != np.dtype(pat.dtype).itemsize:
+        raise ValueError(
+            f"a {np.dtype(pat.dtype).name} pattern cannot scan {arr.dtype}"
+        )
+
+
 def wants_packed(pat: CompiledPattern) -> bool:
-    """True when the step scans through the counts kernel, which takes the
-    packed little-endian int32 word layout (every pattern with at least one
-    check); all-wildcard patterns take element arrays."""
+    """True when a resident grid should be derived as packed little-endian
+    int32 words (kernels A and B: every pattern with at least one check);
+    all-wildcard patterns take element arrays."""
     pairs, _, _ = _prefilter_sel(pat)
     return bool(pairs)
 
@@ -81,10 +154,12 @@ def tile_counts(
     """Phase 1 alone: int32[T] prefilter counts per tile, on the host.
 
     ``arr_device`` holds ``(T+1) * tile_elems`` elements (T counted tiles
-    plus one halo tile): packed words, or u8/u16 elements for a pattern
-    with no checks."""
+    plus one halo tile): packed words (kernel A) or u8/u16 elements
+    (kernel D)."""
     width = np.dtype(pat.dtype).itemsize
     packed = _packed(pat, arr_device)
+    if not packed:
+        _check_elements(pat, arr_device)
     n_elems = arr_device.numel() * (4 // width if packed else 1)
     num_tiles = n_elems // tile_elems - 1
     pairs, _, _ = _prefilter_sel(pat)
@@ -96,12 +171,17 @@ def tile_counts(
         return np.clip(last_valid + 1 - starts, 0, tile_elems).astype(
             np.int32
         )
-    if not packed:
-        raise ValueError("the counts kernel takes packed int32 words")
-    counts = _kernel_tile_counts(
-        arr_device, prefilter_operand(pat, arr_device.device), width=width,
-        tile_elems=tile_elems, length=pat.length, valid_count=valid_count,
-    )
+    checks = prefilter_operand(pat, arr_device.device)
+    if packed:
+        counts = _kernel_tile_counts(
+            arr_device, checks, width=width, tile_elems=tile_elems,
+            length=pat.length, valid_count=valid_count,
+        )
+    else:
+        counts = tile_counts_elems(
+            arr_device, checks, tile_elems=tile_elems, length=pat.length,
+            valid_count=valid_count,
+        )
     return counts.cpu().numpy()
 
 
@@ -134,7 +214,8 @@ def fused_count_extract_start(
 ) -> FusedPending:
     """Enqueue phases 1 + 2 of one step WITHOUT fetching the result, so the
     caller can enqueue the next chunk first.  ``arr_device``: the chunk's
-    packed words (``(T+1) * tile_elems`` elements)."""
+    ``(T+1) * tile_elems`` elements, as packed words (kernels A and B) or
+    u8/u16 elements (kernels D and E)."""
     pairs, _, _ = _prefilter_sel(pat)
     if k_cap is None:
         k_cap = auto_k_cap(pat, valid_count, tile_elems, len(pairs))
@@ -156,9 +237,12 @@ def fused_count_extract_start(
             None, None, pat, arr_device, valid_count, tile_elems,
             grid_offset, k_cap, p_cap, eager=(offs, vals, info),
         )
-    if not _packed(pat, arr_device):
-        raise ValueError("the fused step takes packed int32 words")
-    counts_dev, combo_dev = tile_counts_gather(
+    if _packed(pat, arr_device):
+        step = tile_counts_gather
+    else:
+        _check_elements(pat, arr_device)
+        step = tile_counts_gather_elems
+    counts_dev, combo_dev = step(
         pat, arr_device, valid_count, tile_elems, k_cap, p_cap
     )
     return FusedPending(
@@ -361,3 +445,65 @@ def extract_hot_tiles_device(
         np.concatenate(all_offsets) + grid_offset,
         np.concatenate(all_values),
     )
+
+
+def two_phase_candidates(
+    pat: CompiledPattern,
+    data: np.ndarray,
+    tile_elems: int = TILE_ELEMS,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """All matching window offsets in the host element array *data*, plus
+    the recovery values ``[M, 2]`` read from the host buffer.
+
+    As the reference: *data* is padded with zeros to ``T+1`` whole count
+    tiles (T = its tiles, rounded up; the padding happens on *device*),
+    counted per tile on *device* (kernel D, or its plain version on
+    ``"cpu"``), and the hot tiles are matched exactly on the host."""
+    device = resolve_device(device, "two_phase_candidates")
+    data = np.ascontiguousarray(data, dtype=pat.dtype)
+    n = len(data)
+    if n < pat.length:
+        return _EMPTY
+    t_count = -(-n // tile_elems)
+    arr = upload_elements(data, device, (t_count + 1) * tile_elems)
+    counts = tile_counts(pat, arr, n, tile_elems)
+    return extract_hot_tiles(pat, data, counts, tile_elems)
+
+
+def dense_candidates(
+    pat: CompiledPattern, data: np.ndarray, device="cuda"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """All matching window offsets in *data*, plus recovery values
+    ``[M, 2]``."""
+    return two_phase_candidates(pat, data, device=device)
+
+
+def dense_search(
+    pat: CompiledPattern,
+    data: np.ndarray,
+    semantics: MatchSemantics = MatchSemantics.GREEDY,
+    device="cuda",
+) -> List[Result]:
+    """Search an in-memory element array on *device*; returns
+    ``[(offset, values_map), ...]``.
+
+    ``semantics``: ALL (every match), GREEDY (every match, then the
+    reference's advance replay; the default) or REFERENCE (the exact
+    sequential walker, on the host).  ``device``: ``"cuda"`` or ``"cpu"``
+    (the kernels' plain versions); anything else raises."""
+    if pat.length < 2:
+        raise ValueError("pattern length must be >= 2")
+    device = resolve_device(device, "dense_search")
+    if semantics is MatchSemantics.REFERENCE:
+        return oracle_search(pat, data)
+    offsets, values = two_phase_candidates(pat, data, device=device)
+    if semantics is MatchSemantics.GREEDY and len(offsets) > 1:
+        kept = greedy_suppress(offsets, pat.advance)
+        keep_mask = np.isin(offsets, kept)
+        offsets = offsets[keep_mask]
+        values = values[keep_mask]
+    return [
+        (int(o), recover_from_values(pat, values[i]))
+        for i, o in enumerate(offsets)
+    ]

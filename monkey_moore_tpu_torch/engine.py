@@ -11,7 +11,8 @@ package's ``dense``, which loads jax) and the single-device dense scan:
 - **resident** — the file is uploaded once (``corpus.get_resident_corpus``)
   and each (chunk, alignment) grid is derived on the device;
 - **streaming** — files over ``resident_bytes_limit`` are decoded on the
-  host per chunk and uploaded.
+  host per chunk and uploaded as u8/u16 elements, which take the
+  element-array step (kernels D and E).
 
 Both keep up to ``pipeline_depth`` fused steps in flight: step k+1 is
 enqueued before step k's result buffer is copied back.  Multi-device
@@ -25,7 +26,6 @@ from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from monkey_moore_tpu import engine as _ref
 from monkey_moore_tpu.config import (
@@ -43,25 +43,13 @@ from .dense import (
     TILE_ELEMS,
     fused_count_extract_finish,
     fused_count_extract_start,
+    resolve_device,
+    upload_elements,
     wants_packed,
 )
-from .ops.host import swar_host_view
 from .profiling import SearchStats, StageTimer, device_trace
 
 __all__ = ["SearchEngine", "resolve_device"]
-
-
-def resolve_device(device, owner: str) -> torch.device:
-    """*device* as a ``torch.device``: ``"cuda"`` (the card's kernels; needs
-    a card) or ``"cpu"`` (the kernels' plain versions); anything else
-    raises."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"{owner}: CUDA is not available")
-    elif device.type != "cpu":
-        raise RuntimeError(f"{owner}: no kernels for {device}")
-    return device
 
 
 class SearchEngine(_ref.SearchEngine):
@@ -299,14 +287,14 @@ class SearchEngine(_ref.SearchEngine):
                         )
                 else:
                     # streaming path (file over the residency limit):
-                    # decode and upload the chunk, then the same step
+                    # decode the chunk, upload it as elements and run the
+                    # element-array step (kernels D and E)
                     with timer.stage("decode"):
                         arr = self._decode_grid(data, a, e0, count_here)
                         if len(arr) < want:
                             arr = np.pad(arr, (0, want - len(arr)))
-                        host = swar_host_view(arr) if packed else arr
                     with timer.stage("device_scan"):
-                        dev_arr = torch.from_numpy(host).to(self.device)
+                        dev_arr = upload_elements(arr, self.device)
                         pnd = fused_count_extract_start(
                             pat, dev_arr, count_here, tile_elems=tile_elems
                         )

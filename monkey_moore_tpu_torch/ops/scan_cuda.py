@@ -1,14 +1,18 @@
 """The fused device step's kernels — counterpart of the JAX package's
 ``ops/scan_pallas.py`` (the single-device part of it).
 
-Three kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
+Five kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
 
 - :func:`tile_counts` (kernel A, ``csrc/tile_counts.cu``) replaces
   ``scan_pallas._tile_counts_swar_call``;
 - :func:`gather_tiles` (kernel B, ``csrc/gather_tiles.cu``) replaces
   ``scan_pallas._gather_tiles_dma_call``;
 - :func:`tile_counts_multi` (kernel C, ``csrc/tile_counts_multi.cu``)
-  replaces ``scan_pallas._tile_counts_swar_multi_call``.
+  replaces ``scan_pallas._tile_counts_swar_multi_call``;
+- :func:`tile_counts_elems` (kernel D, ``csrc/tile_counts_elems.cu``)
+  replaces ``scan_pallas._tile_counts_call``;
+- :func:`gather_tiles_block` (kernel E, ``csrc/gather_tiles_block.cu``)
+  replaces ``scan_pallas._gather_tiles_call``.
 
 Each wrapper checks its operands, allocates its output, and launches its
 kernel on the current stream for a CUDA tensor, or runs its plain PyTorch
@@ -19,8 +23,11 @@ that it went through the kernels.
 :func:`tile_counts_gather` is the counterpart of ``tile_counts_gather_pallas``
 with ``_swar_counts_gather_call`` and ``_hot_slots_and_combo``: counts,
 hot-tile selection, gather, unpack, exact phase 2 and the combo buffer,
-all enqueued with no host sync.  :func:`tile_counts_multi_gather` is the
-keyword-batch twin (``_swar_multi_gather_call``).
+all enqueued with no host sync.  :func:`tile_counts_gather_elems` is its
+element-array twin (``_native_counts_gather_call``: kernels D and E), and
+:func:`tile_counts_multi_gather` the keyword-batch twin
+(``_swar_multi_gather_call``).  Packed words always gather with B and
+element arrays with E: the route follows the operand, not a probe.
 """
 
 from __future__ import annotations
@@ -58,10 +65,16 @@ __all__ = [
     "tile_counts_multi",
     "tile_counts_multi_plain",
     "tile_counts_multi_gather",
+    "tile_counts_elems",
+    "tile_counts_elems_plain",
+    "gather_tiles_block",
+    "gather_tiles_block_plain",
+    "tile_counts_gather_elems",
 ]
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
-launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0}
+launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0,
+                 "tile_counts_elems": 0, "gather_tiles_block": 0}
 
 
 def reset_launch_counts() -> None:
@@ -91,7 +104,8 @@ def _raise_on(rc: int, name: str) -> None:
 def prefilter_operand(pat: CompiledPattern, device) -> torch.Tensor:
     """The pattern's selected prefilter checks as an int32 ``(3, C)``
     tensor on *device*: rows ``cur``, ``prev`` and ``expected`` (element
-    dtype, mod 2^width) — kernel A's check operand.  Memoized per pattern."""
+    dtype, mod 2^width) — the check operand of kernels A and D.  Memoized
+    per pattern."""
     cache = operand_cache(pat)
     key = ("prefilter", str(torch.device(device)))
     if key not in cache:
@@ -226,6 +240,122 @@ def gather_tiles_plain(words, hot, *, width, tile_elems) -> torch.Tensor:
     return torch.where(inside, got, 0).to(torch.uint8)
 
 
+def _elems_geometry(elems, tile_elems) -> int:
+    """Checks an element buffer of T+1 tiles; returns T."""
+    _check(elems.dtype in (torch.uint8, torch.uint16) and elems.dim() == 1
+           and elems.is_contiguous(),
+           "elems must be a contiguous 1-D uint8 or uint16 tensor")
+    n_elems = elems.numel()
+    _check(tile_elems > 0 and n_elems % tile_elems == 0
+           and n_elems >= 2 * tile_elems,
+           f"{n_elems} elements are not T+1 >= 2 tiles of {tile_elems}")
+    return n_elems // tile_elems - 1
+
+
+def tile_counts_elems(
+    elems: torch.Tensor,
+    checks: torch.Tensor,
+    *,
+    tile_elems: int,
+    length: int,
+    valid_count: int,
+) -> torch.Tensor:
+    """Kernel D: int32[T] prefilter match counts per tile of an unpacked
+    element buffer.
+
+    ``elems``: ``(T+1) * tile_elems`` u8 or u16 elements — T counted tiles
+    plus one halo tile.  ``checks``: :func:`prefilter_operand`, every shift
+    below ``length``.  Window start ``e`` of tile ``t`` counts when ``e <=
+    valid_count - length`` and every check holds mod 2^(8*width): kernel
+    A's contract on elements instead of packed words."""
+    n_tiles = _elems_geometry(elems, tile_elems)
+    _check(checks.dtype == torch.int32 and checks.dim() == 2
+           and checks.shape[0] == 3 and checks.is_contiguous()
+           and checks.device == elems.device,
+           "checks must be a contiguous (3, C) int32 tensor beside elems")
+    _check(valid_count <= elems.numel(), "valid_count exceeds the buffer")
+    _check(length >= 1, "length must be positive")
+    if not _kernel_device(elems):
+        return tile_counts_elems_plain(
+            elems, checks, tile_elems=tile_elems, length=length,
+            valid_count=valid_count,
+        )
+    from ._build import load_library
+
+    lib = load_library()
+    out = torch.empty(n_tiles, dtype=torch.int32, device=elems.device)
+    with torch.cuda.device(elems.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mm_tile_counts_elems(
+            elems.data_ptr(), n_tiles, tile_elems, elems.element_size(),
+            checks.data_ptr(), int(checks.shape[1]), length - 1,
+            valid_count - length, out.data_ptr(), stream,
+        )
+    _raise_on(rc, "tile_counts_elems")
+    launch_counts["tile_counts_elems"] += 1
+    return out
+
+
+def tile_counts_elems_plain(
+    elems, checks, *, tile_elems, length, valid_count
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`tile_counts_elems`
+    (``scan_jnp.tile_counts_xla``: ``count_body`` on the widened elements;
+    reads the check table back to the host)."""
+    cur, prev, exp = checks.tolist()
+    return count_body(
+        widen(elems), valid_count, exp, list(zip(cur, prev)), length,
+        tile_elems, elems.element_size(),
+    )
+
+
+def gather_tiles_block(
+    elems: torch.Tensor, hot: torch.Tensor, *, tile_elems: int
+) -> torch.Tensor:
+    """Kernel E: slot ``i`` receives elements ``[hot[i] * tile_elems,
+    (hot[i] + 2) * tile_elems)`` of ``elems`` — tile ``hot[i]`` and its
+    halo tile, one CUDA block per tile.  Returns ``(len(hot), 2 *
+    tile_elems)`` in the element dtype; elements past the buffer end read
+    as 0.  Kernel B's contract on an element buffer."""
+    _check(elems.dtype in (torch.uint8, torch.uint16) and elems.dim() == 1
+           and elems.is_contiguous(),
+           "elems must be a contiguous 1-D uint8 or uint16 tensor")
+    _check(hot.dtype == torch.int32 and hot.dim() == 1
+           and hot.is_contiguous() and hot.device == elems.device,
+           "hot must be a contiguous 1-D int32 tensor beside elems")
+    _check(tile_elems > 0, "tile_elems must be positive")
+    if not _kernel_device(elems):
+        return gather_tiles_block_plain(elems, hot, tile_elems=tile_elems)
+    from ._build import load_library
+
+    lib = load_library()
+    k_cap = hot.shape[0]
+    width = elems.element_size()
+    out = torch.empty((k_cap, 2 * tile_elems), dtype=elems.dtype,
+                      device=elems.device)
+    with torch.cuda.device(elems.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mm_gather_tiles_block(
+            elems.data_ptr(), elems.numel() * width, hot.data_ptr(), k_cap,
+            tile_elems * width, out.data_ptr(), stream,
+        )
+    _raise_on(rc, "gather_tiles_block")
+    launch_counts["gather_tiles_block"] += 1
+    return out
+
+
+def gather_tiles_block_plain(elems, hot, *, tile_elems) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gather_tiles_block`: an element
+    index take (u16 through an int16 view)."""
+    src = elems.view(torch.int16) if elems.dtype == torch.uint16 else elems
+    idx = hot.to(torch.int64)[:, None] * tile_elems + torch.arange(
+        2 * tile_elems, dtype=torch.int64, device=elems.device
+    )
+    inside = (idx >= 0) & (idx < src.numel())
+    got = src[torch.clamp(idx, 0, max(src.numel() - 1, 0))]
+    return torch.where(inside, got, 0).view(elems.dtype)
+
+
 def tile_counts_gather(
     pat: CompiledPattern,
     words: torch.Tensor,
@@ -254,18 +384,43 @@ def tile_counts_gather(
     )
 
 
-def _hot_slots_and_combo(pat, words, counts, valid_count, tile_elems, k_cap,
+def tile_counts_gather_elems(
+    pat: CompiledPattern,
+    elems: torch.Tensor,
+    valid_count: int,
+    tile_elems: int,
+    k_cap: int,
+    p_cap: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`tile_counts_gather` on an unpacked u8/u16 element buffer
+    (``_native_counts_gather_call``): kernel D's counts, then
+    ``nonzero_capped``, kernel E's gather, the exact phase 2 and the combo
+    buffer, in the same layout, enqueued with no host sync."""
+    counts = tile_counts_elems(
+        elems, prefilter_operand(pat, elems.device), tile_elems=tile_elems,
+        length=pat.length, valid_count=valid_count,
+    )
+    return counts, _hot_slots_and_combo(
+        pat, elems, counts, valid_count, tile_elems, k_cap, p_cap
+    )
+
+
+def _hot_slots_and_combo(pat, data, counts, valid_count, tile_elems, k_cap,
                          p_cap) -> torch.Tensor:
     """The fused step's tail after the counts (``_hot_slots_and_combo``):
-    the first ``k_cap`` hot tiles gathered with their halo tiles (kernel
-    B), the exact phase 2 over them, and the pattern's combo buffer."""
+    the first ``k_cap`` hot tiles gathered with their halo tiles (kernel B
+    from packed int32 words, kernel E from u8/u16 elements), the exact
+    phase 2 over them, and the pattern's combo buffer."""
     width = np.dtype(pat.dtype).itemsize
     L = pat.length
     hot = nonzero_capped(counts, k_cap)
     nhot = (counts > 0).sum(dtype=torch.int32)
-    raw = gather_tiles(words, hot, width=width, tile_elems=tile_elems)
-    slots = raw.view(torch.uint8 if width == 1 else torch.uint16)
-    _, _, exp_exact, recovery = pattern_device_args(pat, words.device)
+    if data.dtype == torch.int32:
+        raw = gather_tiles(data, hot, width=width, tile_elems=tile_elems)
+        slots = as_elements(raw, width)
+    else:
+        slots = gather_tiles_block(data, hot, tile_elems=tile_elems)
+    _, _, exp_exact, recovery = pattern_device_args(pat, data.device)
     n_cand, flat_idx, v0, v1 = exact_phase2(
         slots[:, : tile_elems + L - 1], hot, nhot,
         valid_count // tile_elems, valid_count % tile_elems,

@@ -32,6 +32,7 @@ __all__ = [
     "tile_counts_multi",
     "nonzero_capped",
     "exact_phase2",
+    "fused_body",
     "pack_combo",
 ]
 
@@ -204,6 +205,50 @@ def exact_phase2(
     r0 = torch.minimum(torch.clamp(rel + recovery[0], min=0), lim)
     r1 = torch.minimum(torch.clamp(rel + recovery[1], min=0), lim)
     return n_cand, idx, vals[slot, r0], vals[slot, r1]
+
+
+def fused_body(
+    elems: torch.Tensor,
+    valid_count: int,
+    expected: Sequence[int],
+    pairs: Sequence[Tuple[int, int]],
+    expected_exact: torch.Tensor,
+    recovery: torch.Tensor,
+    *,
+    length: int,
+    tile_elems: int,
+    k_cap: int,
+    p_cap: int,
+    signed_compare: bool,
+    pairs_exact: Sequence[Tuple[int, int]],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole fused step on an unpacked element buffer in plain tensor
+    code (``scan_jnp.fused_body_xla``): :func:`count_body`, the first
+    ``k_cap`` hot tiles, each sliced out with its halo tile, the exact
+    phase 2 and the combo buffer.  Returns ``(counts, combo)``.
+
+    ``elems``: ``(T+1) * tile_elems`` u8/u16 elements; ``expected`` and
+    ``pairs``: the selected prefilter checks; ``expected_exact`` and
+    ``recovery``: :func:`pattern_device_args`."""
+    width = elems.element_size()
+    counts = count_body(widen(elems), valid_count, expected, pairs, length,
+                        tile_elems, width)
+    hot = nonzero_capped(counts, k_cap)
+    nhot = (counts > 0).sum(dtype=torch.int32)
+    # hot ids are below T and the buffer holds T+1 tiles: no slice reads
+    # past the end
+    idx = hot.to(torch.int64)[:, None] * tile_elems + torch.arange(
+        tile_elems + length - 1, dtype=torch.int64, device=elems.device
+    )
+    src = elems.view(torch.int16) if width == 2 else elems
+    slots = src[idx].view(elems.dtype)
+    n_cand, flat_idx, v0, v1 = exact_phase2(
+        slots, hot, nhot, valid_count // tile_elems, valid_count % tile_elems,
+        tile_elems=tile_elems, length=length, pairs_exact=pairs_exact,
+        expected=expected_exact, signed_compare=signed_compare,
+        recovery=recovery, p_cap=p_cap,
+    )
+    return counts, pack_combo(counts, hot, nhot, n_cand, flat_idx, v0, v1)
 
 
 def pack_combo(counts, hot, nhot, n_cand, flat_idx, v0, v1) -> torch.Tensor:

@@ -78,6 +78,121 @@ def test_gather_tiles_kernel_equals_plain(cuda, k_cap, tile_elems, width):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize(
+    "kw,wc,width",
+    [("abcde", 0, 1), ("ab*de", "*", 1), ("abcde", 0, 2), ("ab*de", "*", 2)],
+)
+@pytest.mark.parametrize("tile_elems", [8, 4096, 40_000])
+def test_tile_counts_elems_kernel_equals_plain(cuda, kw, wc, width,
+                                               tile_elems):
+    rng = np.random.default_rng(6)
+    pat = compile_pattern(kw, wc, dtype=np.uint8 if width == 1 else np.uint16)
+    n_tiles = 12
+    n_valid = n_tiles * tile_elems - 3
+    plants = [0, tile_elems - 2, n_valid - pat.length, 5 * tile_elems + 1]
+    elems = _planted_words(rng, pat, n_tiles, tile_elems, n_valid,
+                           plants).view(torch.uint8 if width == 1
+                                        else torch.uint16)
+    checks = scan_cuda.prefilter_operand(pat, "cpu")
+    args = dict(tile_elems=tile_elems, length=pat.length, valid_count=n_valid)
+    want = scan_cuda.tile_counts_elems(elems, checks, **args)
+    before = scan_cuda.launch_counts["tile_counts_elems"]
+    got = scan_cuda.tile_counts_elems(elems.to(cuda), checks.to(cuda), **args)
+    torch.cuda.synchronize()
+    assert scan_cuda.launch_counts["tile_counts_elems"] == before + 1
+    assert got.cpu().tolist() == want.tolist()
+    assert int(want.sum()) >= len(plants)
+    words = elems.view(torch.int32).to(cuda)  # kernel A on the same bytes
+    assert scan_cuda.tile_counts(words, checks.to(cuda), width=width,
+                                 **args).cpu().tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("k_cap", [1, 32, 128])
+@pytest.mark.parametrize("tile_elems,width", [(8, 1), (4096, 1), (4096, 2),
+                                              (1000, 2)])
+def test_gather_tiles_block_kernel_equals_plain(cuda, k_cap, tile_elems,
+                                                width):
+    rng = np.random.default_rng(7)
+    n_tiles = 40
+    dtype = np.uint8 if width == 1 else np.uint16
+    arr = rng.integers(0, 1 << (8 * width), (n_tiles + 1) * tile_elems)
+    elems = torch.from_numpy(arr.astype(dtype).view(np.int16 if width == 2
+                                                     else np.uint8))
+    elems = elems.view(torch.uint16) if width == 2 else elems
+    hot = rng.integers(0, n_tiles + 1, k_cap).astype(np.int32)
+    hot[k_cap // 2 :] = hot[0]  # duplicate ids, as idle slots repeat
+    hot = torch.from_numpy(hot)
+    want = scan_cuda.gather_tiles_block(elems, hot, tile_elems=tile_elems)
+    got = scan_cuda.gather_tiles_block(elems.to(cuda), hot.to(cuda),
+                                       tile_elems=tile_elems)
+    assert torch.equal(got.cpu(), want)
+    via_b = scan_cuda.gather_tiles(elems.to(cuda), hot.to(cuda), width=width,
+                                   tile_elems=tile_elems)
+    assert torch.equal(via_b.cpu(), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_fused_step_elements_cuda_equals_fused_body(cuda, width):
+    from monkey_moore_tpu_torch.ops.host import prefilter_checks as sel
+    from monkey_moore_tpu_torch.ops.scan_torch import (
+        fused_body,
+        pattern_device_args,
+    )
+
+    rng = np.random.default_rng(8)
+    pat = compile_pattern("dr*gon", "*",
+                          dtype=np.uint8 if width == 1 else np.uint16)
+    te, n_tiles = 65_536, 9
+    n_valid = n_tiles * te - 11
+    plants = [4, te - 3, 4 * te + 17, n_valid - pat.length]
+    elems = _planted_words(rng, pat, n_tiles, te, n_valid, plants).view(
+        torch.uint8 if width == 1 else torch.uint16).to(cuda)
+    pairs, exp = sel(pat)
+    _, _, exp_exact, recovery = pattern_device_args(pat, cuda)
+    want = fused_body(
+        elems, n_valid, [int(e) for e in exp], pairs, exp_exact, recovery,
+        length=pat.length, tile_elems=te, k_cap=8, p_cap=16,
+        signed_compare=pat.signed_compare,
+        pairs_exact=tuple(zip(map(int, pat.chk_shift_cur),
+                              map(int, pat.chk_shift_prev))),
+    )
+    scan_cuda.reset_launch_counts()
+    got = scan_cuda.tile_counts_gather_elems(pat, elems, n_valid, te, 8, 16)
+    torch.cuda.synchronize()
+    assert scan_cuda.launch_counts["tile_counts_elems"] == 1
+    assert scan_cuda.launch_counts["gather_tiles_block"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_probe_matches_every_kernel(cuda):
+    from monkey_moore_tpu_torch.ops.probe import probe
+
+    got = probe()
+    assert got.library is not None and got.error is None
+    assert [k.name for k in got.kernels] == [
+        "tile_counts", "tile_counts_elems", "gather_tiles_block",
+        "gather_tiles"]
+    assert all(k.launched and k.matched for k in got.kernels), got.kernels
+
+
+def test_dense_search_cuda_equals_cpu(cuda):
+    from monkey_moore_tpu.config import MatchSemantics
+    from monkey_moore_tpu_torch.dense import dense_search
+
+    rng = np.random.default_rng(9)
+    data = rng.integers(0, 65536, 300_000).astype(np.uint16)
+    for pos in (0, 262_142, 299_994):
+        data[pos : pos + 6] = [ord(c) + 400 for c in "castle"]
+    pat = compile_pattern("castle", dtype=np.uint16)
+    for semantics in MatchSemantics:
+        scan_cuda.reset_launch_counts()
+        got = dense_search(pat, data, semantics, device="cuda")
+        if semantics is not MatchSemantics.REFERENCE:
+            assert scan_cuda.launch_counts["tile_counts_elems"] == 1
+        assert got == dense_search(pat, data, semantics, device="cpu")
+        assert [o for o, _ in got] == [0, 262_142, 299_994]
+
+
 MULTI_KEYWORDS = [
     "monkey", "dr*gon", "?bcde", "abcdefghijkl", "sword", "castle", "ab*de",
     "zyxwv", "?rincess", "treasurechest", "shield", "potion", "b*tter",

@@ -1,0 +1,352 @@
+"""The PyTorch port's element-array path against the JAX package, on the
+same u8/u16 element arrays made with numpy from a fixed seed:
+
+- kernel D's plain version (``scan_cuda.tile_counts_elems_plain``, and the
+  wrapper on CPU tensors) against the Pallas ``_tile_counts_call`` in
+  interpret mode (``tile_counts_pallas(mode="native")``) and against
+  ``scan_jnp.tile_counts_xla``;
+- kernel E's plain version against the Pallas ``_gather_tiles_call`` in
+  interpret mode and against kernel B's plain version;
+- the element-array fused step (``dense.fused_count_extract_start`` on
+  element tensors, and the plain twin ``scan_torch.fused_body``) against
+  ``_native_counts_gather_call`` (interpret) and
+  ``scan_jnp.tile_counts_gather_xla``, combo field by combo field;
+- ``dense_search`` / ``dense_candidates`` / ``two_phase_candidates``
+  against the JAX functions on the named corpora of ``tests/test_scan.py``
+  and its width-1/width-2 fuzz.
+
+Tolerance: exact equality throughout — every value is an integer.
+"""
+
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from monkey_moore_tpu import dense as jdense
+from monkey_moore_tpu.config import MatchSemantics
+from monkey_moore_tpu.ops.scan_jnp import (
+    pattern_device_args,
+    prefilter_checks,
+    tile_counts_gather_xla,
+    tile_counts_xla,
+)
+from monkey_moore_tpu.ops.scan_pallas import (
+    LANES,
+    _gather_tiles_call,
+    tile_counts_pallas,
+)
+from monkey_moore_tpu.pattern import compile_pattern
+from monkey_moore_tpu_torch import dense as tdense
+from monkey_moore_tpu_torch.ops import scan_cuda, scan_torch
+from monkey_moore_tpu_torch.ops.host import combo_fields
+from test_scan import CORPORA
+from test_torch_dense import _assert_same_step
+
+TE = 32 * 1024  # smallest count tile the interpret-mode Pallas path takes
+
+CASES = [("abcde", 0, np.uint8), ("ab*de", "*", np.uint8),
+         ("abcde", 0, np.uint16), ("But**er", "*", np.uint16)]
+
+
+def _elements(pat, n_tiles, n, plants, seed):
+    """``n_tiles + 1`` tiles of elements: seeded random up to ``n``, zero
+    past it, the keyword (+3) at each plant."""
+    mod = 1 << (8 * np.dtype(pat.dtype).itemsize)
+    arr = np.zeros((n_tiles + 1) * TE, dtype=pat.dtype)
+    arr[:n] = np.random.default_rng(seed).integers(0, mod, n)
+    kw = ((np.array(pat.keyword, dtype=np.int64) + 3) % mod).astype(pat.dtype)
+    for pos in plants:
+        arr[pos : pos + len(kw)] = kw
+    return arr
+
+
+@pytest.mark.parametrize("kw,wc,dtype", CASES)
+def test_tile_counts_elems_equal(kw, wc, dtype):
+    pat = compile_pattern(kw, wc, dtype=dtype)
+    L = pat.length
+    n = 3 * TE - 1234  # ragged valid limit
+    plants = [5, TE - 2, 2 * TE + 100, n - L]  # start, straddle, last
+    arr = _elements(pat, 3, n, plants + [n + 10], seed=1)  # + past limit
+    want = np.asarray(tile_counts_pallas(
+        pat, jnp.asarray(arr).reshape(-1, LANES), n, tile_rows=TE // LANES,
+        interpret=True, mode="native",
+    ))
+    pairs, exp = prefilter_checks(pat)
+    xla = np.asarray(tile_counts_xla(
+        jnp.asarray(arr), jnp.int32(n), jnp.asarray(exp), pairs=pairs,
+        length=L, tile_elems=TE,
+    ))
+    elems = torch.from_numpy(arr)
+    checks = scan_cuda.prefilter_operand(pat, "cpu")
+    args = dict(tile_elems=TE, length=L, valid_count=n)
+    plain = scan_cuda.tile_counts_elems_plain(elems, checks, **args)
+    wrapped = scan_cuda.tile_counts_elems(elems, checks, **args)
+    port = tdense.tile_counts(pat, elems, n, tile_elems=TE)
+    assert plain.tolist() == want.tolist() == xla.tolist()
+    assert wrapped.tolist() == port.tolist() == want.tolist()
+    assert want[0] >= 2 and want[2] >= 2
+
+
+def test_tile_counts_elems_rejects_bad_operands():
+    pat = compile_pattern("abcde")
+    checks = scan_cuda.prefilter_operand(pat, "cpu")
+    args = dict(tile_elems=64, length=5, valid_count=100)
+    with pytest.raises(ValueError):  # packed words are kernel A's operand
+        scan_cuda.tile_counts_elems(torch.zeros(64, dtype=torch.int32),
+                                    checks, **args)
+    with pytest.raises(ValueError):  # not T+1 whole tiles
+        scan_cuda.tile_counts_elems(torch.zeros(100, dtype=torch.uint8),
+                                    checks, **args)
+    with pytest.raises(ValueError):  # a u8 pattern on u16 elements
+        tdense.tile_counts(pat, torch.zeros(128, dtype=torch.uint16), 100,
+                           tile_elems=64)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("k_cap", [1, 2, 8])
+def test_gather_tiles_block_equal(k_cap, dtype, rng):
+    rows_per_tile = 8
+    te = rows_per_tile * 128
+    data = rng.integers(0, np.iinfo(dtype).max + 1, (80, 128)).astype(dtype)
+    hot = rng.integers(0, 80 // rows_per_tile - 1, k_cap).astype(np.int32)
+    hot[k_cap // 2 :] = hot[0]  # duplicate ids, as idle slots repeat
+    want = np.asarray(_gather_tiles_call(
+        jnp.asarray(data), jnp.asarray(hot), k_cap=k_cap,
+        rows_per_tile=rows_per_tile, interpret=True,
+    )).reshape(k_cap, -1)
+    elems = torch.from_numpy(data.reshape(-1))
+    hot_t = torch.from_numpy(hot)
+    plain = scan_cuda.gather_tiles_block_plain(elems, hot_t, tile_elems=te)
+    wrapped = scan_cuda.gather_tiles_block(elems, hot_t, tile_elems=te)
+    width = np.dtype(dtype).itemsize
+    via_b = scan_cuda.gather_tiles_plain(elems, hot_t, width=width,
+                                         tile_elems=te)
+    assert plain.dtype == elems.dtype and plain.shape == (k_cap, 2 * te)
+    assert np.array_equal(plain.numpy(), want)
+    assert torch.equal(wrapped, plain)
+    assert np.array_equal(via_b.numpy().view(dtype), want)
+
+
+def test_gather_tiles_block_past_the_end_reads_zero():
+    elems = torch.arange(1, 41, dtype=torch.uint8)  # 5 tiles of 8
+    got = scan_cuda.gather_tiles_block(
+        elems, torch.tensor([3, 4], dtype=torch.int32), tile_elems=8)
+    assert got[0].tolist() == list(range(25, 41))
+    assert got[1].tolist() == list(range(33, 41)) + [0] * 8
+
+
+def _jax_steps(pat, arr, n, **kw):
+    """The JAX fused step on the element array: native Pallas kernels in
+    interpret mode, and the XLA body."""
+    return [
+        jdense.fused_count_extract_start(
+            pat, jnp.asarray(arr), n, use_pallas=use_pallas,
+            interpret=use_pallas, tile_elems=TE, **kw,
+        )
+        for use_pallas in (True, False)
+    ]
+
+
+def _assert_step_equal(pat, arr, n, **kw):
+    tp = tdense.fused_count_extract_start(
+        pat, torch.from_numpy(arr.copy()), n, tile_elems=TE, **kw
+    )
+    assert tp.combo_dev is not None  # the fused step, not a host branch
+    for jp in _jax_steps(pat, arr, n, **kw):
+        offs, info = _assert_same_step(jp, tp)
+    return offs, info
+
+
+@pytest.mark.parametrize("kw,wc,dtype", CASES)
+def test_fused_step_elements_equal(kw, wc, dtype):
+    pat = compile_pattern(kw, wc, dtype=dtype)
+    L = pat.length
+    n = 3 * TE - 77
+    plants = [10, TE - 2, 2 * TE + 50, n - L]
+    arr = _elements(pat, 3, n, plants, seed=2)
+    arr[n + 8 : n + 8 + L] = arr[10 : 10 + L]  # past the valid limit
+    offs, info = _assert_step_equal(pat, arr, n)
+    assert set(plants) <= set(offs.tolist())
+    assert not info.fallback
+
+
+def test_fused_step_elements_grid_offset_and_false_positives():
+    pat = compile_pattern("abcdefgh")  # 7 checks, 4 on the prefilter
+    arr = _elements(pat, 3, 3 * TE, [500, TE + 9], seed=3)
+    arr[100:106] = [10, 11, 12, 13, 14, 99]  # passes the prefilter only
+    offs, info = _assert_step_equal(pat, arr, 3 * TE, grid_offset=1000)
+    assert offs.tolist()[:2] == [1500, TE + 1009]
+    assert info.prefilter_total > info.candidates
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_fused_step_elements_k_cap_overflow(dtype):
+    pat = compile_pattern("abcde", dtype=dtype)
+    plants = [t * TE + 13 for t in range(4)]
+    arr = _elements(pat, 4, 0, plants, seed=0)
+    offs, info = _assert_step_equal(pat, arr, 4 * TE, k_cap=2)
+    assert info.fallback and info.hot_tiles == 4
+    assert offs.tolist() == plants
+
+
+def test_fused_step_elements_p_cap_overflow():
+    pat = compile_pattern("abcde", dtype=np.uint16)
+    n = 2 * TE
+    arr = np.zeros(3 * TE, dtype=np.uint16)
+    arr[:n] = np.arange(n) & 0xFFFF  # a ramp matches nearly every window
+    offs, info = _assert_step_equal(pat, arr, n, p_cap=16)
+    assert info.fallback and len(offs) > 16
+
+
+@pytest.mark.parametrize("kw,wc,dtype", CASES)
+def test_fused_body_equals_xla(kw, wc, dtype):
+    """The plain twin of the element step against ``fused_body_xla``."""
+    pat = compile_pattern(kw, wc, dtype=dtype)
+    te, n = 256, 5 * 256 - 9
+    mod = 1 << (8 * np.dtype(dtype).itemsize)
+    arr = np.random.default_rng(4).integers(0, mod, 6 * te).astype(dtype)
+    arr[n:] = 0
+    kwv = ((np.array(pat.keyword, dtype=np.int64) + 7) % mod).astype(dtype)
+    for pos in (3, te - 2, 3 * te + 1, n - pat.length):
+        arr[pos : pos + pat.length] = kwv
+    pairs, exp = prefilter_checks(pat)
+    pairs_exact = tuple(
+        (int(c), int(p)) for c, p in zip(pat.chk_shift_cur,
+                                         pat.chk_shift_prev))
+    _, _, j_exp, j_rec = pattern_device_args(pat)
+    statics = dict(length=pat.length, tile_elems=te, k_cap=4, p_cap=8,
+                   signed_compare=pat.signed_compare, pairs_exact=pairs_exact)
+    j_counts, j_combo = tile_counts_gather_xla(
+        jnp.asarray(arr), jnp.int32(n), jnp.asarray(exp),
+        jnp.asarray([n // te, n % te], dtype=jnp.int32), j_exp, j_rec,
+        pairs=pairs, span=te + pat.length - 1, **statics,
+    )
+    _, _, t_exp, t_rec = scan_torch.pattern_device_args(pat, "cpu")
+    t_counts, t_combo = scan_torch.fused_body(
+        torch.from_numpy(arr), n, [int(e) for e in exp], pairs, t_exp,
+        t_rec, **statics,
+    )
+    assert t_counts.tolist() == np.asarray(j_counts).tolist()
+    jf = combo_fields(np.asarray(j_combo), 4, 8)
+    tf = combo_fields(t_combo.numpy(), 4, 8)
+    assert tf[:3] == jf[:3]
+    m = min(jf[0], 4)
+    assert tf[3][:m].tolist() == jf[3][:m].tolist()
+    for g, w in zip(tf[4:], jf[4:]):
+        assert g.tolist() == w.tolist()
+    step = scan_cuda.tile_counts_gather_elems(
+        pat, torch.from_numpy(arr), n, te, 4, 8)
+    assert torch.equal(step[1], t_combo)
+
+
+def _results(res):
+    return [(o, dict(m)) for o, m in res]
+
+
+@pytest.mark.parametrize("name,make", CORPORA, ids=[n for n, _ in CORPORA])
+@pytest.mark.parametrize("semantics", list(MatchSemantics),
+                         ids=lambda s: s.name)
+def test_dense_search_corpora_equal(name, make, semantics):
+    pat, data = make()
+    want = jdense.dense_search(pat, data, semantics)
+    got = tdense.dense_search(pat, data, semantics, device="cpu")
+    assert _results(got) == _results(want)
+    j_offs, j_vals = jdense.dense_candidates(pat, data)
+    t_offs, t_vals = tdense.dense_candidates(pat, data, device="cpu")
+    assert t_offs.tolist() == j_offs.tolist()
+    assert t_vals.tolist() == j_vals.tolist()
+
+
+@pytest.mark.parametrize("name", ["wildcard-16", "value-scan-8"])
+def test_dense_search_equals_interpret(name):
+    """A few corpora against the JAX native Pallas kernel (interpret)."""
+    pat, data = dict(CORPORA)[name]()
+    want = jdense.dense_search(pat, data, MatchSemantics.ALL,
+                               interpret=True)
+    got = tdense.dense_search(pat, data, MatchSemantics.ALL, device="cpu")
+    assert _results(got) == _results(want) and got
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_dense_candidates_fuzz_equal(rng, width):
+    """``tests/test_scan.py``'s planted fuzz, port against JAX."""
+    dtype = np.uint8 if width == 1 else np.uint16
+    mod = 256 if width == 1 else 65536
+    letters = np.arange(97, 123)
+    for _ in range(25):
+        n = int(rng.integers(20, 3000))
+        data = rng.integers(0, mod, n)
+        kw_len = int(rng.integers(2, 8))
+        kw = rng.choice(letters, kw_len).tolist()
+        use_wc = rng.random() < 0.5
+        if use_wc:
+            for i in range(1, kw_len):  # keep position 0 literal
+                if rng.random() < 0.25:
+                    kw[i] = ord("*")
+        for _ in range(int(rng.integers(0, 5))):
+            pos = int(rng.integers(0, max(1, n - kw_len)))
+            shift = int(rng.integers(-40, 40))
+            data[pos : pos + kw_len] = (np.array(kw) + shift) % mod
+        pat = compile_pattern(kw, ord("*") if use_wc else 0, dtype=dtype)
+        arr = data.astype(dtype)
+        j_offs, j_vals = jdense.dense_candidates(pat, arr)
+        t_offs, t_vals = tdense.dense_candidates(pat, arr, device="cpu")
+        assert t_offs.tolist() == j_offs.tolist(), f"kw={kw} n={n}"
+        assert t_vals.tolist() == j_vals.tolist(), f"kw={kw} n={n}"
+        assert (_results(tdense.dense_search(pat, arr, device="cpu"))
+                == _results(jdense.dense_search(pat, arr)))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_two_phase_candidates_small_tiles_equal(dtype):
+    """Several count tiles, a tile-straddling match and a ragged end."""
+    pat = compile_pattern("b*tter", "*", dtype=dtype)
+    te = 64
+    mod = 1 << (8 * np.dtype(dtype).itemsize)
+    data = np.random.default_rng(5).integers(0, mod, 1000).astype(dtype)
+    kw = ((np.array(pat.keyword, dtype=np.int64) + 9) % mod).astype(dtype)
+    for pos in (0, te - 3, 500, 1000 - 6):
+        data[pos : pos + 6] = kw
+    j_offs, j_vals = jdense.two_phase_candidates(pat, data, tile_elems=te)
+    t_offs, t_vals = tdense.two_phase_candidates(pat, data, tile_elems=te,
+                                                 device="cpu")
+    assert t_offs.tolist() == j_offs.tolist()
+    assert t_vals.tolist() == j_vals.tolist()
+    assert {0, te - 3, 500, 994} <= set(t_offs.tolist())
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_upload_elements_read_only(tmp_path, dtype):
+    """A read-only host array (a memmap) uploads quietly, padded with zeros,
+    and the call leaves the process's warning filters as they were."""
+    path = tmp_path / "arr.bin"
+    want = np.random.default_rng(6).integers(0, 60000, 100).astype(dtype)
+    want.tofile(path)
+    arr = np.memmap(path, dtype=dtype, mode="r")
+    filters = list(warnings.filters)
+    with warnings.catch_warnings(record=True) as caught:
+        got = tdense.upload_elements(arr, "cpu", 128)
+    assert not caught and warnings.filters == filters
+    assert got.dtype == (torch.uint8 if dtype == np.uint8 else torch.uint16)
+    widened = scan_torch.widen(got).tolist()
+    assert widened == want.tolist() + [0] * 28
+
+
+def test_dense_search_edges():
+    pat = compile_pattern("catch")
+    assert tdense.dense_search(pat, np.zeros(3, dtype=np.uint8),
+                               device="cpu") == []
+    offs, vals = tdense.dense_candidates(pat, np.zeros(4, dtype=np.uint8),
+                                         device="cpu")
+    assert offs.shape == (0,) and vals.shape == (0, 2)
+    with pytest.raises(ValueError, match=">= 2"):
+        tdense.dense_search(compile_pattern("a"), np.zeros(9, np.uint8),
+                            device="cpu")
+    with pytest.raises(RuntimeError):
+        tdense.dense_search(pat, np.zeros(9, np.uint8), device="meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tdense.dense_search(pat, np.zeros(9, np.uint8))

@@ -135,6 +135,51 @@ def test_pipelined_chunks(tmp_path, width, resident):
     ]
 
 
+@pytest.mark.parametrize("endianness", [Endianness.LITTLE, Endianness.BIG])
+@pytest.mark.parametrize("width", [1, 2])
+def test_streaming_takes_element_step(tmp_path, monkeypatch, width,
+                                      endianness):
+    """resident_bytes_limit=0: every chunk is uploaded as elements and runs
+    kernels D and E (their plain versions here), never A or B."""
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    calls = {"tile_counts_elems": 0, "gather_tiles_block": 0,
+             "tile_counts": 0, "gather_tiles": 0}
+
+    def spy(name):
+        real = getattr(scan_cuda, name)
+
+        def wrapper(data, *args, **kwargs):
+            assert data.dtype in (torch.uint8, torch.uint16) or name in (
+                "tile_counts", "gather_tiles")
+            calls[name] += 1
+            return real(data, *args, **kwargs)
+
+        monkeypatch.setattr(scan_cuda, name, wrapper)
+
+    for name in calls:
+        spy(name)
+    rng = np.random.default_rng(12)
+    dtype = np.uint8 if width == 1 else np.uint16
+    data = rng.integers(0, 1 << (8 * width), 50_000).astype(dtype)
+    enc = (text_u8 if width == 1 else text_u16)("dra*on", 5)
+    enc[3] = 77  # wildcard position: arbitrary value
+    for pos in (3, 16_380, 33_333, len(data) - 6):
+        data[pos : pos + 6] = enc.astype(dtype)
+    kind = f"{'<' if endianness is Endianness.LITTLE else '>'}u{width}"
+    cfg = SearchConfig(
+        file_path=write_file(tmp_path, data.astype(kind).view(np.uint8)),
+        keyword="dra*on", wildcard="*", element_width=width,
+        endianness=endianness, device_chunk_bytes=8192,
+        host_latency_threshold_bytes=0, resident_bytes_limit=0,
+    )
+    res = assert_same_as_jax(cfg)
+    assert [r.offset for r in res] == [
+        3 * width, 16_380 * width, 33_333 * width, (len(data) - 6) * width]
+    assert calls["tile_counts_elems"] == calls["gather_tiles_block"] > 0
+    assert calls["tile_counts"] == calls["gather_tiles"] == 0
+
+
 def test_wildcard_16bit_big_endian(tmp_path):
     rng = np.random.default_rng(6)
     data = rng.integers(0, 65536, 80_000).astype(np.uint16)
@@ -208,6 +253,18 @@ def test_probe_reports_without_cuda():
     assert got.cuda is False and got.library is None
 
 
+def test_probe_runs_no_kernels_without_cuda():
+    from monkey_moore_tpu_torch.ops import scan_cuda
+    from monkey_moore_tpu_torch.ops.probe import probe
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    before = dict(scan_cuda.launch_counts)
+    got = probe()
+    assert got.kernels == () and got.error is None
+    assert scan_cuda.launch_counts == before
+
+
 def test_default_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -251,3 +308,24 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+_BREAKDOWN = """
+import sys
+from monkey_moore_tpu_torch import breakdown
+rc = breakdown.main([])
+assert "jax" not in sys.modules, "the breakdown loaded jax"
+sys.exit(rc)
+"""
+
+
+def test_breakdown_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the breakdown would start")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BREAKDOWN], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 1, proc.stderr
+    assert "no CUDA device" in proc.stderr and proc.stdout == ""
