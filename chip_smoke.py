@@ -34,14 +34,29 @@
 7. repeats phase 4's searches through the engine's streaming branch (the
    residency limit below the file size): each chunk is uploaded as
    elements and scanned by kernels D and E, never A or B, and the results
-   must equal phase 4's.
+   must equal phase 4's;
+8. runs the benchmark path of ``monkey_moore_tpu_torch.bench`` in-process
+   at its full size (``MMTPU_BENCH_MB``, 12 GiB by default): the corpus is
+   generated on the card, the keyword is planted at two byte offsets that
+   are not word-aligned, just past 2^31 and 2^32, the fused step must find
+   both and every offset it reports must hold the keyword (checked on the
+   host from the bytes there), then the bench's timed paths run (fused
+   step, pure-load kernel I, counts kernel A at I's tiles) and its JSON
+   record is printed.  Kernel I must equal its plain version and
+   ``torch.sum`` on the whole corpus, and no share of the published
+   bandwidth may read over 105%.
 
-Each path runs with the launch counts set to 0 just before it and read
-just after.  The last line is ``{"ok": true, "device": {...}}``; the line
-before it is the card's ``nvidia-smi`` name and power limit, and before
-that a JSON object with each kernel's launches on its paths, its largest
-difference from the plain version, and both times.  Any failure exits
-non-zero before those lines.  Without a CUDA card it exits 1 at once.
+Phase 3 also holds kernel I against its plain version and ``torch.sum`` on
+the 512 MiB chunk buffer.  Each path runs with the launch counts set to 0
+just before it and read just after.  The last line is ``{"ok": true,
+"device": {...}}``; the line before it is the card's ``nvidia-smi`` name
+and power limit, and before that a JSON object with each kernel's launches
+on its paths, its largest difference from the plain version, its time, its
+plain version's time, the bound (the least time the card could take: bytes
+over 3.35 TB/s or operations over 67 T/s, whichever is larger) and the time
+of one PyTorch call computing the same function, where there is one.  Any
+failure exits non-zero before those lines.  Without a CUDA card it exits 1
+at once.
 """
 
 from __future__ import annotations
@@ -60,6 +75,16 @@ FILE_BYTES = 1 << 30
 CHUNK = 512 * MIB  # the engine's default device chunk (bytes)
 TE = 262_144  # the main path's count tile (elements)
 
+#: the H100 SXM's published device-memory rate, and its float32 rate outside
+#: the tensor cores taken as the peak of the 32-bit integer operations the
+#: counts kernels do; a bound from them is the
+#: least time the card could take
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12
+#: integer operations per evaluated check (subtract, mask, compare); a
+#: window of random data needs at least its first check
+OPS_PER_CHECK = 3
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -73,6 +98,16 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def nvcc_release(nvcc) -> str:
+    """The release line of ``nvcc --version``, or "not found"."""
+    if nvcc is None:
+        return "not found"
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    lines = [s for s in out.stdout.splitlines() if "release" in s]
+    return (lines or out.stdout.strip().splitlines() or ["?"])[-1].strip()
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -89,6 +124,14 @@ def time_ms(torch, fn, reps: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def bound(n_bytes: int, n_ops: int):
+    """``(bound_ms, bound_by)``: the larger of the bytes' time at the
+    card's memory rate and the operations' time at its peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def random_words(torch, gen, n_bytes: int):
@@ -115,14 +158,15 @@ def kernel_phase(torch):
     the kernels line without launch counts."""
     import numpy as np
 
-    from monkey_moore_tpu.pattern import compile_pattern
     from monkey_moore_tpu_torch.ops import scan_cuda
     from monkey_moore_tpu_torch.ops.scan_torch import nonzero_capped
+    from monkey_moore_tpu_torch.pattern import compile_pattern
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    err = {"A": 0, "B": 0, "D": 0, "E": 0}
+    err = {"A": 0, "B": 0, "D": 0, "E": 0, "I": 0}
     ms = {}
+    work = {}  # kernel -> (bound_ms, bound_by) at the timed shape
     for width in (1, 2):
         dtype = np.uint8 if width == 1 else np.uint16
         elem_dtype = torch.uint8 if width == 1 else torch.uint16
@@ -165,9 +209,15 @@ def kernel_phase(torch):
                     ms["D plain"] = time_ms(
                         torch, lambda: scan_cuda.tile_counts_elems_plain(
                             elems, checks, **args), 5)
+                    # read every byte once, write the counts; at least the
+                    # first check of every window
+                    work["A"] = work["D"] = bound(
+                        words.numel() * 4 + n_tiles * 4,
+                        (valid - pat.length + 1) * OPS_PER_CHECK)
+                    load_checks(torch, scan_cuda, words, err, ms)
                 if te == TE and kw == "abcde":
                     gather_checks(torch, scan_cuda, nonzero_capped, words,
-                                  elems, got, width, te, err, ms)
+                                  elems, got, width, te, err, ms, work)
                 del words, elems, got, want, got_d, want_d
                 torch.cuda.empty_cache()
     for name in err:
@@ -179,34 +229,65 @@ def kernel_phase(torch):
           f"{ms['D plain']:.4f} ms plain on the same u8 buffer; B == E == "
           f"plain (k_cap 1/32/128): B {ms['B']:.4f} ms vs {ms['B plain']:.4f}"
           f" ms plain, E {ms['E']:.4f} ms vs {ms['E plain']:.4f} ms plain at "
-          f"k_cap=32", flush=True)
-    err_c, c_ms, c_plain_ms = multi_kernel_phase(torch, gen)
+          f"k_cap=32 (index_select of the tile view {ms['B library']:.4f} "
+          f"ms); I == plain == torch.sum on the {CHUNK // MIB} MiB buffer: "
+          f"I {ms['I chunk']:.4f} ms vs {ms['I chunk plain']:.4f} ms plain, "
+          f"torch.sum {ms['I chunk library']:.4f} ms", flush=True)
+    err_c, c_ms, c_plain_ms, work["C"] = multi_kernel_phase(torch, gen)
     src = "monkey_moore_tpu_torch/csrc/"
     tpu = "monkey_moore_tpu/ops/scan_pallas.py:"
+
+    def row(name, source, replaces, key, max_err, kms, plain, library):
+        bound_ms, bound_by = work[key]
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "max_abs_err": max_err, "ms": kms,
+                "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library}
+
     return [
-        {"name": "tile_counts", "route": "cuda",
-         "source": src + "tile_counts.cu", "replaces": tpu + "612",
-         "max_abs_err": err["A"], "ms": ms["A"], "plain_ms": ms["A plain"]},
-        {"name": "gather_tiles", "route": "cuda",
-         "source": src + "gather_tiles.cu", "replaces": tpu + "245",
-         "max_abs_err": err["B"], "ms": ms["B"], "plain_ms": ms["B plain"]},
-        {"name": "tile_counts_multi", "route": "cuda",
-         "source": src + "tile_counts_multi.cu", "replaces": tpu + "838",
-         "max_abs_err": err_c, "ms": c_ms, "plain_ms": c_plain_ms},
-        {"name": "tile_counts_elems", "route": "cuda",
-         "source": src + "tile_counts_elems.cu", "replaces": tpu + "373",
-         "max_abs_err": err["D"], "ms": ms["D"], "plain_ms": ms["D plain"]},
-        {"name": "gather_tiles_block", "route": "cuda",
-         "source": src + "gather_tiles_block.cu", "replaces": tpu + "315",
-         "max_abs_err": err["E"], "ms": ms["E"], "plain_ms": ms["E plain"]},
-    ]
+        row("tile_counts", "tile_counts.cu", tpu + "612", "A", err["A"],
+            ms["A"], ms["A plain"], None),
+        row("gather_tiles", "gather_tiles.cu", tpu + "245", "B", err["B"],
+            ms["B"], ms["B plain"], ms["B library"]),
+        row("tile_counts_multi", "tile_counts_multi.cu", tpu + "838", "C",
+            err_c, c_ms, c_plain_ms, None),
+        row("tile_counts_elems", "tile_counts_elems.cu", tpu + "373", "D",
+            err["D"], ms["D"], ms["D plain"], None),
+        row("gather_tiles_block", "gather_tiles_block.cu", tpu + "315", "E",
+            err["E"], ms["E"], ms["E plain"], ms["B library"]),
+    ], err["I"]
+
+
+def load_checks(torch, scan_cuda, words, err, ms):
+    """Phase 3, kernel I on the 512 MiB chunk buffer: its per-tile sums
+    (2 MiB tiles, the TPU load kernel's block) and total against its plain
+    version, and the total against ``torch.sum``, exactly; CUDA-event
+    medians of all three."""
+    from monkey_moore_tpu_torch.bench import LOAD_TILE_WORDS
+
+    n_tiles = words.numel() // LOAD_TILE_WORDS
+    body = words[: n_tiles * LOAD_TILE_WORDS]
+    sums, total = scan_cuda.load_sum(words, LOAD_TILE_WORDS)
+    p_sums, p_total = scan_cuda.load_sum_plain(words, LOAD_TILE_WORDS)
+    library = torch.sum(body, dtype=torch.int32)
+    err["I"] = max(err["I"], int((sums.long() - p_sums.long()).abs().max()),
+                   abs(int(total) - int(p_total)),
+                   abs(int(total) - int(library)))
+    ms["I chunk"] = time_ms(
+        torch, lambda: scan_cuda.load_sum(words, LOAD_TILE_WORDS), 20)
+    ms["I chunk plain"] = time_ms(
+        torch, lambda: scan_cuda.load_sum_plain(words, LOAD_TILE_WORDS), 5)
+    ms["I chunk library"] = time_ms(
+        torch, lambda: torch.sum(body, dtype=torch.int32), 20)
 
 
 def gather_checks(torch, scan_cuda, nonzero_capped, words, elems, counts,
-                  width, te, err, ms):
+                  width, te, err, ms, work):
     """Phase 3, the gathers: B on the word view and E on the element view
     against their plain versions and each other, byte for byte, at k_cap
-    1, 32 and 128 with duplicate ids; times both at k_cap 32 (u8)."""
+    1, 32 and 128 with duplicate ids; times both at k_cap 32 (u8), beside
+    one ``index_select`` of the overlapping tile view (the library call
+    that computes the same gather), which must equal B."""
     for k_cap in (1, 32, 128):
         hot = nonzero_capped(counts, k_cap)
         hot[k_cap // 2 :] = hot[0].clone()  # duplicate ids
@@ -235,6 +316,16 @@ def gather_checks(torch, scan_cuda, nonzero_capped, words, elems, counts,
             ms["E plain"] = time_ms(torch, lambda: scan_cuda
                                     .gather_tiles_block_plain(
                                         elems, hot, tile_elems=te), 10)
+            # tile t and its halo tile are row t of the overlapping view
+            spans = words.view(torch.uint8).unfold(0, 2 * te, te)
+            check(torch.equal(torch.index_select(spans, 0, hot), b),
+                  "index_select of the tile view differs from kernel B")
+            ms["B library"] = time_ms(torch, lambda: torch.index_select(
+                spans, 0, hot), 50)
+            # each distinct tile read once, every slot written
+            ids = set(hot.tolist())
+            read = len(ids | {i + 1 for i in ids}) * te
+            work["B"] = work["E"] = bound(read + 2 * k_cap * te, 0)
 
 
 #: the K = 8 batch of the keyword-batch kernel check: canonical plain
@@ -250,11 +341,12 @@ def multi_kernel_phase(torch, gen):
     K = 8: u8 and u16, a 512 MiB chunk at the main path's tile and ten
     8192-element tiles; each keyword planted at the start and across a tile
     edge, the last one also at its last valid window.  Returns (largest
-    difference, kernel ms, plain ms) at the u8 512 MiB chunk."""
+    difference, kernel ms, plain ms, (bound ms, bound by)) at the u8
+    512 MiB chunk."""
     import numpy as np
 
-    from monkey_moore_tpu.pattern import compile_pattern
     from monkey_moore_tpu_torch.ops import scan_cuda
+    from monkey_moore_tpu_torch.pattern import compile_pattern
 
     err = 0
     c_ms = c_plain_ms = None
@@ -288,13 +380,18 @@ def multi_kernel_phase(torch, gen):
                 c_plain_ms = time_ms(
                     torch, lambda: scan_cuda.tile_counts_multi_plain(
                         words, table, last_starts, **args), 5)
+                # one read of the chunk, K count rows written; at least the
+                # first check of every keyword at every window
+                c_work = bound(
+                    words.numel() * 4 + len(pats) * n_tiles * 4,
+                    sum(valid - p.length + 1 for p in pats) * OPS_PER_CHECK)
             del words, got, want
             torch.cuda.empty_cache()
     check(err == 0, f"kernel C differs from its plain version by {err}")
     print(f"phase 3 kernels: C == plain (K=8, u8/u16, te={TE} over "
           f"{CHUNK // MIB} MiB and te=8192): {c_ms:.4f} ms vs "
           f"{c_plain_ms:.4f} ms plain at u8", flush=True)
-    return err, c_ms, c_plain_ms
+    return err, c_ms, c_plain_ms, c_work
 
 
 def write_corpus(path: Path):
@@ -304,7 +401,7 @@ def write_corpus(path: Path):
     {name: (MultiSearcher kwargs, [(spec, planted byte offsets)])}."""
     import numpy as np
 
-    from monkey_moore_tpu.config import Endianness
+    from monkey_moore_tpu_torch.config import Endianness
 
     rng = np.random.default_rng(SEED)
     data = np.frombuffer(rng.bytes(FILE_BYTES), dtype=np.uint8).copy()
@@ -370,7 +467,7 @@ def write_corpus(path: Path):
 
 def slice_phase(torch, workdir: Path):
     """Phase 4: the three searches through the port's entry point."""
-    from monkey_moore_tpu.config import SearchConfig
+    from monkey_moore_tpu_torch.config import SearchConfig
     from monkey_moore_tpu_torch.engine import SearchEngine
     from monkey_moore_tpu_torch.ops import scan_cuda
 
@@ -493,16 +590,16 @@ def memory_phase(torch, path: Path, searches):
     greedy suppression and recovery."""
     import numpy as np
 
-    from monkey_moore_tpu.config import Endianness, MatchSemantics
-    from monkey_moore_tpu.ops.recover import recover_from_values
-    from monkey_moore_tpu.ops.scan_host import (
+    from monkey_moore_tpu_torch.config import Endianness, MatchSemantics
+    from monkey_moore_tpu_torch.dense import dense_candidates, dense_search
+    from monkey_moore_tpu_torch.ops import scan_cuda
+    from monkey_moore_tpu_torch.ops.recover import recover_from_values
+    from monkey_moore_tpu_torch.ops.scan_host import (
         decode_grid_host,
         host_candidates_values,
     )
-    from monkey_moore_tpu.ops.suppress import greedy_suppress
-    from monkey_moore_tpu.pattern import compile_pattern
-    from monkey_moore_tpu_torch.dense import dense_candidates, dense_search
-    from monkey_moore_tpu_torch.ops import scan_cuda
+    from monkey_moore_tpu_torch.ops.suppress import greedy_suppress
+    from monkey_moore_tpu_torch.pattern import compile_pattern
 
     data = np.fromfile(path, dtype=np.uint8)
     grid16 = decode_grid_host(data, len(data), 2, Endianness.BIG, 0)
@@ -562,7 +659,7 @@ def stream_phase(torch, path: Path, searches, resident):
     (``resident_bytes_limit`` below the file size): each chunk is decoded
     on the host, uploaded as elements and scanned by kernels D and E.
     Results must equal phase 4's resident results."""
-    from monkey_moore_tpu.config import SearchConfig
+    from monkey_moore_tpu_torch.config import SearchConfig
     from monkey_moore_tpu_torch.engine import SearchEngine
     from monkey_moore_tpu_torch.ops import scan_cuda
 
@@ -597,6 +694,108 @@ def stream_phase(torch, path: Path, searches, resident):
     return launches
 
 
+def bench_phase(torch, err_i: int):
+    """Phase 8: the benchmark path of ``monkey_moore_tpu_torch.bench`` at
+    its full size, in-process.  The keyword is planted at two byte offsets
+    that are not word-aligned, just past 2^31 and 2^32; the fused step must
+    find both, and every offset it reports must hold the keyword (its
+    adjacent differences, checked on the host from the bytes there).  Then
+    the bench's timed paths run and its record is printed on a line of its
+    own.  Kernel I is then held against its plain version and ``torch.sum``
+    on the whole corpus and timed (after the launch counts are read).
+    Returns the path's launch counts and kernel I's row of the kernels
+    line; ``err_i`` is phase 3's largest difference of kernel I."""
+    import numpy as np
+
+    from monkey_moore_tpu_torch import bench
+    from monkey_moore_tpu_torch.corpus import clear_corpus_cache
+    from monkey_moore_tpu_torch.dense import fused_count_extract
+    from monkey_moore_tpu_torch.ops import scan_cuda
+    from monkey_moore_tpu_torch.ops.host import LANES
+    from monkey_moore_tpu_torch.pattern import compile_pattern
+
+    clear_corpus_cache()
+    torch.cuda.empty_cache()
+    conf = bench.settings()
+    n = conf.pop("mb") * MIB
+    device = torch.device("cuda")
+    problem = bench.check_memory(device, n)
+    check(problem is None, str(problem))
+    pat = compile_pattern(bench.KEYWORD)
+    plants = [2**31 + 1, 2**32 + 3]
+    check(plants[-1] + pat.length <= n, f"a {n}-byte corpus is too small")
+
+    scan_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    words = bench.make_corpus(n, SEED, device)
+    raw = words.view(torch.uint8)
+    kw = (np.array(pat.keyword, dtype=np.int64) + 7) % 256
+    for off in plants:
+        raw[off : off + pat.length] = torch.tensor(kw, dtype=torch.uint8,
+                                                  device=device)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    te = conf["tile_rows"] * LANES
+    offs, _, info = fused_count_extract(
+        pat, bench.tile_view(words, n, te), n, tile_elems=te,
+        k_cap=conf["k_cap"])
+    found = offs.tolist()
+    missing = sorted(set(plants) - set(found))
+    check(not missing, f"bench: planted offsets not found: {missing}")
+    want = np.diff(np.array(pat.keyword, dtype=np.int64)) % 256
+    for off in found:
+        check(0 <= off and off + pat.length <= n,
+              f"bench: offset {off} outside the corpus")
+        got = raw[off : off + pat.length].cpu().numpy().astype(np.int64)
+        check(bool((np.diff(got) % 256 == want).all()),
+              f"bench: offset {off} does not hold the keyword: {got}")
+    name = torch.cuda.get_device_name(device)
+    record = bench.measure(words, n, device_name=name, **conf)
+    launches = dict(scan_cuda.launch_counts)
+    check(launches["load_sum"] >= 1 and launches["tile_counts"] >= 1
+          and launches["gather_tiles"] >= 1,
+          f"kernels not launched on the bench path: {launches}")
+    print(json.dumps(record), flush=True)
+    shares = {"pct_hbm_roofline": record.get("pct_hbm_roofline", 0.0),
+              "pure load % of 3.35 TB/s":
+                  100.0 * record["pure_load_bytes_per_s"] / HBM_BYTES_PER_S}
+    check(all(v <= 105.0 for v in shares.values()),
+          f"bench: a share over 105% means broken timing: {shares}")
+
+    tw = bench.LOAD_TILE_WORDS
+    n_load = n // bench.LOAD_TILE_BYTES
+    body = words[: n_load * tw]
+    sums, total = scan_cuda.load_sum(body, tw)
+    p_sums, p_total = scan_cuda.load_sum_plain(body, tw)
+    library = torch.sum(body, dtype=torch.int32)
+    err = max(err_i, int((sums.long() - p_sums.long()).abs().max()),
+              abs(int(total) - int(p_total)), abs(int(total) - int(library)))
+    check(err == 0, f"kernel I differs from its plain version by {err}")
+    i_ms = time_ms(torch, lambda: scan_cuda.load_sum(body, tw), 20)
+    i_plain = time_ms(torch, lambda: scan_cuda.load_sum_plain(body, tw), 3)
+    i_library = time_ms(torch, lambda: torch.sum(body, dtype=torch.int32), 20)
+    # read every word once, write the sums and the total; one add per word
+    bound_ms, bound_by = bound(n_load * bench.LOAD_TILE_BYTES + n_load * 4
+                               + 4, n_load * tw)
+    print(f"phase 8 bench: {n // MIB} MiB generated and planted in "
+          f"{t_fill:.3f} s; plants at {plants} found among {len(found)} "
+          f"offsets, each holding the keyword (hot tiles "
+          f"{info.hot_tiles}); shares {shares}; I == plain == torch.sum on "
+          f"{n_load} tiles: I {i_ms:.4f} ms vs {i_plain:.4f} ms plain, "
+          f"torch.sum {i_library:.4f} ms, bound {bound_ms:.4f} ms",
+          flush=True)
+    print(f"phase 8 launches on the bench path: {launches}", flush=True)
+    del words, raw, body, sums, p_sums
+    torch.cuda.empty_cache()
+    return launches, {
+        "name": "load_sum", "route": "cuda",
+        "source": "monkey_moore_tpu_torch/csrc/load_sum.cu",
+        "replaces": "bench.py:241", "max_abs_err": err, "ms": i_ms,
+        "plain_ms": i_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": i_library,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -608,8 +807,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     print(f"phase 1 env: torch {torch.__version__} (CUDA "
-          f"{torch.version.cuda}), device {name!r}, nvidia-smi: {smi}",
-          flush=True)
+          f"{torch.version.cuda}), device {name!r}, nvidia-smi: {smi}, "
+          f"nvcc: {nvcc_release(_build.find_nvcc())}", flush=True)
 
     from monkey_moore_tpu_torch.ops.probe import probe
 
@@ -626,7 +825,7 @@ def main() -> int:
         f"{k.name} launched and matched" for k in report.kernels),
         flush=True)
 
-    kernels = kernel_phase(torch)
+    kernels, err_i = kernel_phase(torch)
     with tempfile.TemporaryDirectory(prefix="mm_chip_smoke_") as tmp:
         launches = {}
         launches["search"], path, searches, resident, batches = slice_phase(
@@ -634,6 +833,8 @@ def main() -> int:
         launches["batch"] = batch_phase(torch, path, batches)
         launches["memory"] = memory_phase(torch, path, searches)
         launches["stream"] = stream_phase(torch, path, searches, resident)
+    launches["bench"], load_row = bench_phase(torch, err_i)
+    kernels.append(load_row)
     for row in kernels:
         by_path = {name: counts[row["name"]]
                    for name, counts in launches.items()}

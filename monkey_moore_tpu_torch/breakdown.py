@@ -37,6 +37,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .pattern import compile_pattern
+
 SEED = 20261016
 FILE_BYTES = 1 << 30
 CHUNK = 512 << 20  # the engine's default device chunk (bytes)
@@ -80,8 +82,6 @@ def _corpus(path: Path) -> np.ndarray:
 
 
 def in_memory(data: np.ndarray, reps: int) -> dict:
-    from monkey_moore_tpu.pattern import compile_pattern
-
     from .dense import (
         TILE_ELEMS,
         dense_candidates,
@@ -118,8 +118,6 @@ def in_memory(data: np.ndarray, reps: int) -> dict:
 
 
 def fused_step(data: np.ndarray, reps: int) -> dict:
-    from monkey_moore_tpu.pattern import compile_pattern
-
     from .dense import TILE_ELEMS, fused_count_extract, upload_elements
 
     pat = compile_pattern("monkey")
@@ -138,8 +136,7 @@ def fused_step(data: np.ndarray, reps: int) -> dict:
 
 
 def streaming(path: Path, reps: int) -> dict:
-    from monkey_moore_tpu.config import Endianness, SearchConfig
-
+    from .config import Endianness, SearchConfig
     from .engine import SearchEngine
 
     out = {}

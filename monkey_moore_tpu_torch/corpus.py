@@ -23,7 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from monkey_moore_tpu.config import Endianness
+from .carry import require_own
+from .config import Endianness
 
 __all__ = ["ResidentCorpus", "get_resident_corpus", "clear_corpus_cache"]
 
@@ -80,7 +81,8 @@ class ResidentCorpus:
 
         ``packed=True`` returns the counts kernel's little-endian int32 word
         layout (4 bytes, so 4 or 2 elements, per word); otherwise u8 or u16
-        elements."""
+        elements.  ``endianness`` must be the port's ``Endianness``."""
+        require_own(endianness, Endianness, "grid_chunk: endianness")
         s = element_width
         b0 = align + e_start * s
         byte_shift = b0 % 4

@@ -39,13 +39,8 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from monkey_moore_tpu.config import MatchSemantics
-from monkey_moore_tpu.ops.recover import recover_from_values, recovery_shifts
-from monkey_moore_tpu.ops.scan_np import match_positions_np
-from monkey_moore_tpu.ops.suppress import greedy_suppress
-from monkey_moore_tpu.oracle import oracle_search
-from monkey_moore_tpu.pattern import CompiledPattern
-
+from .carry import require_own
+from .config import MatchSemantics
 from .ops.host import (
     _EMPTY,
     LANES,
@@ -67,6 +62,11 @@ from .ops.scan_cuda import (
     tile_counts_multi_gather,
 )
 from .ops.scan_cuda import tile_counts as _kernel_tile_counts
+from .ops.recover import recover_from_values, recovery_shifts
+from .ops.scan_np import match_positions_np
+from .ops.suppress import greedy_suppress
+from .oracle import oracle_search
+from .pattern import CompiledPattern
 
 __all__ = [
     "TILE_ELEMS",
@@ -126,6 +126,13 @@ def upload_elements(arr: np.ndarray, device, n_elems: int | None = None
     return out.view(torch.uint16) if wide else out
 
 
+def _own(pat, what: str) -> CompiledPattern:
+    """*pat* if it is the port's ``CompiledPattern``, else ``TypeError``:
+    a JAX-package pattern would match none of the port's ``SearchMode``
+    branches."""
+    return require_own(pat, CompiledPattern, what)
+
+
 def _packed(pat: CompiledPattern, arr: torch.Tensor) -> bool:
     return arr.dtype == torch.int32 and np.dtype(pat.dtype).itemsize < 4
 
@@ -156,6 +163,7 @@ def tile_counts(
     ``arr_device`` holds ``(T+1) * tile_elems`` elements (T counted tiles
     plus one halo tile): packed words (kernel A) or u8/u16 elements
     (kernel D)."""
+    _own(pat, "tile_counts")
     width = np.dtype(pat.dtype).itemsize
     packed = _packed(pat, arr_device)
     if not packed:
@@ -216,6 +224,7 @@ def fused_count_extract_start(
     caller can enqueue the next chunk first.  ``arr_device``: the chunk's
     ``(T+1) * tile_elems`` elements, as packed words (kernels A and B) or
     u8/u16 elements (kernels D and E)."""
+    _own(pat, "fused_count_extract_start")
     pairs, _, _ = _prefilter_sel(pat)
     if k_cap is None:
         k_cap = auto_k_cap(pat, valid_count, tile_elems, len(pairs))
@@ -320,6 +329,8 @@ def fused_multi_eligible(
     ``LANES``), so the port takes the fused route for exactly the batches
     the TPU does.  The reference's Mosaic compute-mode test has no
     counterpart here."""
+    for pat in pats:
+        _own(pat, "fused_multi_eligible")
     width = np.dtype(pats[0].dtype).itemsize
     if any(np.dtype(p.dtype).itemsize != width for p in pats):
         return False
@@ -384,6 +395,7 @@ def extract_hot_tiles_device(
     tiles' spans (``tile_elems + L - 1`` elements each) in ONE batched
     device→host copy and run the exact matcher on them.  ``arr_device`` is
     the step's buffer, packed words or u8/u16 elements."""
+    _own(pat, "extract_hot_tiles_device")
     L = pat.length
     itemsize = np.dtype(pat.dtype).itemsize
     packed = _packed(pat, arr_device)
@@ -460,6 +472,7 @@ def two_phase_candidates(
     tiles (T = its tiles, rounded up; the padding happens on *device*),
     counted per tile on *device* (kernel D, or its plain version on
     ``"cpu"``), and the hot tiles are matched exactly on the host."""
+    _own(pat, "two_phase_candidates")
     device = resolve_device(device, "two_phase_candidates")
     data = np.ascontiguousarray(data, dtype=pat.dtype)
     n = len(data)
@@ -492,6 +505,8 @@ def dense_search(
     reference's advance replay; the default) or REFERENCE (the exact
     sequential walker, on the host).  ``device``: ``"cuda"`` or ``"cpu"``
     (the kernels' plain versions); anything else raises."""
+    _own(pat, "dense_search")
+    require_own(semantics, MatchSemantics, "dense_search: semantics")
     if pat.length < 2:
         raise ValueError("pattern length must be >= 2")
     device = resolve_device(device, "dense_search")

@@ -1,12 +1,14 @@
 """File search engine on one CUDA device — the PyTorch port's counterpart
-of ``monkey_moore_tpu.engine.SearchEngine``.
+of the JAX package's ``engine.SearchEngine``.
 
-A subclass of the JAX package's engine: pattern compilation, the host
-latency route (``_scan_host``), the exact reference walk
-(``_scan_reference``), block math, progress accounting and the final
-suppression/recovery (``finalize_candidates``) are inherited unchanged.
-The port owns :meth:`SearchEngine.run` (the original imports the JAX
-package's ``dense``, which loads jax) and the single-device dense scan:
+The host half is a copy of the JAX engine's: block math
+(``compute_search_blocks``), the per-(block, alignment) suppression and
+recovery (``finalize_candidates``), pattern compilation, the host latency
+route (``_scan_host``, the C dense scanner), the exact reference walk
+(``_scan_reference``) and progress accounting (``_BlockProgress``);
+``tests/test_torch_copies.py`` holds the copies equal to their originals.
+The port's own part is :meth:`SearchEngine.run` and the single-device
+dense scan:
 
 - **resident** — the file is uploaded once (``corpus.get_resident_corpus``)
   and each (chunk, alignment) grid is derived on the device;
@@ -21,23 +23,23 @@ meshes and multi-host search are not ported yet and raise.
 
 from __future__ import annotations
 
+import concurrent.futures
+import os
+import time
 from collections import deque
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from monkey_moore_tpu import engine as _ref
-from monkey_moore_tpu.config import (
+from .carry import require_config
+from .config import (
     MatchSemantics,
     ProgressCallback,
     SearchConfig,
     SearchResult,
     SearchStep,
 )
-from monkey_moore_tpu.preview import generate_preview
-from monkey_moore_tpu.utils.logging import log
-
 from .corpus import get_resident_corpus
 from .dense import (
     TILE_ELEMS,
@@ -47,24 +49,165 @@ from .dense import (
     upload_elements,
     wants_packed,
 )
+from .ops.recover import recover_from_values
+from .ops.scan_host import (
+    decode_grid_host,
+    host_candidates_values,
+    host_grid_view,
+)
+from .ops.suppress import greedy_suppress
+from .oracle import reference_walk
+from .pattern import CompiledPattern, compile_pattern
+from .preview import decode_elements, generate_preview
 from .profiling import SearchStats, StageTimer, device_trace
+from .utils.logging import log
 
-__all__ = ["SearchEngine", "resolve_device"]
+__all__ = [
+    "SearchEngine",
+    "compute_search_blocks",
+    "finalize_candidates",
+    "resolve_device",
+]
 
 
-class SearchEngine(_ref.SearchEngine):
+def compute_search_blocks(
+    file_size: int, pattern_len: int, element_size: int, base_size: int
+) -> List[Tuple[int, int]]:
+    """(offset, size) logical blocks with halo overlap.
+
+    Parity: ``compute_search_blocks`` (``search_engine.cpp:218-253``): blocks
+    advance by ``base_size`` bytes; each reads
+    ``base_size + (pattern_len-1)*element_size`` bytes clipped at EOF.
+    """
+    overlap = (pattern_len - 1) * element_size
+    full = base_size + overlap
+    num_blocks = -(-file_size // base_size) if file_size else 0
+    blocks = []
+    for i in range(num_blocks):
+        offset = i * base_size
+        size = min(full, file_size - offset)
+        blocks.append((offset, size))
+    return blocks
+
+
+def finalize_candidates(
+    pat, semantics, s, base, file_size, per_group, candidate_info
+):
+    """Dense candidates → final (byte_offset, values_map) list, applying the
+    reference's per-(block, alignment) match semantics.
+
+    ``per_group``: {(block_id, alignment): [element offsets]};
+    ``candidate_info``: {(alignment, element offset): (byte_offset, values)}.
+    """
+    L = pat.length
+    results = []
+    suppress = semantics is MatchSemantics.GREEDY
+    for (block_id, a), elems in per_group.items():
+        elems = np.array(sorted(elems), dtype=np.int64)
+        if suppress and s > 1:
+            # Block-fit parity filter: the reference's halo is
+            # ``(L-1)*element_size`` bytes (``search_engine.cpp:227``), one
+            # element too short for the shifted alignment grid, so an
+            # odd-aligned match whose window pokes past its owning block's
+            # trimmed element count is silently missed by the reference.
+            # GREEDY mode replicates that; ALL mode reports the match.
+            fit = []
+            for e in elems.tolist():
+                byte_off, _ = candidate_info[(a, e)]
+                rel = byte_off - block_id * base
+                a_loc = rel % s
+                j = rel // s
+                size_i = min(base + (L - 1) * s, file_size - block_id * base)
+                count_i = (size_i - a_loc) // s
+                if j + L <= count_i:
+                    fit.append(e)
+            elems = np.array(fit, dtype=np.int64)
+        if suppress:
+            elems = greedy_suppress(elems, pat.advance)
+        for e in elems.tolist():
+            byte_off, val = candidate_info[(a, e)]
+            results.append((byte_off, recover_from_values(pat, val)))
+    return results
+
+
+_HOST_FILE_CACHE: dict = {}  # most recent small file's bytes (host RAM)
+
+_HOST_POOL = [None, 0]  # lazy persistent executor: [pool, max_workers]
+
+
+def _host_pool(n_threads: int):
+    """Process-wide thread pool for host-path slice scans — creating an
+    executor per search cost ~1-2 ms, erasing the 2-thread win at the
+    8-16 MiB sweep sizes."""
+    if _HOST_POOL[0] is None or _HOST_POOL[1] < n_threads:
+        if _HOST_POOL[0] is not None:
+            _HOST_POOL[0].shutdown(wait=False)  # don't leak old workers
+        _HOST_POOL[0] = concurrent.futures.ThreadPoolExecutor(
+            max_workers=n_threads
+        )
+        _HOST_POOL[1] = n_threads
+    return _HOST_POOL[0]
+
+
+def _host_file_bytes(path: Path, file_size: int) -> np.ndarray:
+    """Bytes of a small file, cached by (path, size, mtime) — the host-side
+    analog of the resident device corpus for the host latency path."""
+    try:
+        st = path.stat()
+    except OSError:
+        return np.memmap(path, dtype=np.uint8, mode="r")
+    key = (str(path), st.st_size, st.st_mtime_ns)
+    hit = _HOST_FILE_CACHE.get(key)
+    if hit is None:
+        hit = np.fromfile(path, dtype=np.uint8)
+        _HOST_FILE_CACHE.clear()
+        _HOST_FILE_CACHE[key] = hit
+    return hit
+
+
+def _normalize_abort(abort_flag) -> Callable[[], bool]:
+    if abort_flag is None:
+        return lambda: False
+    if hasattr(abort_flag, "is_set"):
+        return abort_flag.is_set
+    if callable(abort_flag):
+        return abort_flag
+    return lambda: bool(abort_flag)
+
+
+class SearchEngine:
     """Headless search engine over a file on disk, scanning on *device*.
 
-    ``device`` is ``"cuda"`` (the default; the card's kernels) or ``"cpu"``
-    (the kernels' plain PyTorch versions, for tests)::
+    ``config`` is the port's :class:`~monkey_moore_tpu_torch.config.
+    SearchConfig` (a JAX-package one raises ``TypeError``: convert it with
+    :func:`~monkey_moore_tpu_torch.carry.carry_over`).  ``device`` is
+    ``"cuda"`` (the default; the card's kernels) or ``"cpu"`` (the kernels'
+    plain PyTorch versions, for tests)::
 
         engine = SearchEngine(config)
         results = engine.run(on_progress, abort_flag, generate_previews=True)
     """
 
     def __init__(self, config: SearchConfig, device="cuda"):
-        super().__init__(config)
+        self.config = require_config(config, "SearchEngine")
         self.device = resolve_device(device, "SearchEngine")
+        #: :class:`~monkey_moore_tpu_torch.profiling.SearchStats` of the
+        #: last run.
+        self.last_stats = None
+
+    # ------------------------------------------------------------------
+    def compile(self) -> CompiledPattern:
+        cfg = self.config
+        if cfg.is_relative_search:
+            return compile_pattern(
+                keyword=cfg.keyword,
+                wildcard=cfg.wildcard,
+                char_seq=cfg.custom_char_seq,
+                dtype=cfg.dtype(),
+            )
+        return compile_pattern(
+            reference_values=list(cfg.reference_values), dtype=cfg.dtype()
+        )
 
     # ------------------------------------------------------------------
     def run(
@@ -80,7 +223,7 @@ class SearchEngine(_ref.SearchEngine):
         if cfg.devices is not None:
             raise NotImplementedError("multi-device meshes are not ported")
         progress = on_progress or (lambda pct, step: None)
-        aborted = _ref._normalize_abort(abort_flag)
+        aborted = _normalize_abort(abort_flag)
 
         path = Path(cfg.file_path) if cfg.file_path else None
         if path is None or not path.exists():
@@ -96,7 +239,7 @@ class SearchEngine(_ref.SearchEngine):
             pat = self.compile()
         s = cfg.element_width
 
-        blocks = _ref.compute_search_blocks(
+        blocks = compute_search_blocks(
             file_size, pat.length, s, cfg.preferred_search_block_size
         )
         log("blocks=", len(blocks), " file_size=", file_size)
@@ -104,7 +247,7 @@ class SearchEngine(_ref.SearchEngine):
         progress(0, SearchStep.SEARCHING)
 
         if file_size and file_size <= cfg.host_latency_threshold_bytes:
-            data = _ref._host_file_bytes(path, file_size)
+            data = _host_file_bytes(path, file_size)
         elif file_size:
             data = np.memmap(path, dtype=np.uint8, mode="r")
         else:
@@ -151,7 +294,7 @@ class SearchEngine(_ref.SearchEngine):
                         file_size,
                         r.offset,
                         r.values_map,
-                        len(_ref._as_seq(cfg.keyword)),
+                        len(_as_seq(cfg.keyword)),
                         cfg.preferred_preview_width,
                         s,
                         cfg.endianness,
@@ -162,13 +305,27 @@ class SearchEngine(_ref.SearchEngine):
         return results
 
     # ------------------------------------------------------------------
+    def _element_grid(self, file_size: int, align: int) -> int:
+        """Valid element count of alignment grid *align* (mirrors the
+        per-block ``data_count`` trim, ``search_engine.cpp:137-141``)."""
+        s = self.config.element_width
+        return max(0, (file_size - align) // s)
+
+    def _decode_grid(
+        self, data: np.ndarray, align: int, e_start: int, e_count: int
+    ) -> np.ndarray:
+        """Elements [e_start, e_start+e_count) of an alignment grid."""
+        s = self.config.element_width
+        b0 = align + e_start * s
+        raw = data[b0 : b0 + e_count * s]
+        return decode_elements(raw.tobytes(), s, self.config.endianness)
+
+    # ------------------------------------------------------------------
     def _scan_dense(self, pat, data, file_size, blocks, progress, aborted,
-                    timer, own_bytes=None, gather=None):
+                    timer):
         """Two-phase dense scan on one device (fused device steps + the
         per-(block, alignment) greedy suppression of ``finalize_candidates``).
         """
-        if own_bytes is not None or gather is not None:
-            raise NotImplementedError("multi-host search is not ported")
         cfg = self.config
         s = cfg.element_width
         L = pat.length
@@ -208,7 +365,7 @@ class SearchEngine(_ref.SearchEngine):
             (self._element_grid(file_size, a) for a in range(s)), default=0
         ) // chunk_elems))
 
-        tracker = _ref._BlockProgress(len(blocks), base, progress, aborted)
+        tracker = _BlockProgress(len(blocks), base, progress, aborted)
 
         def record_step(a, e0, offs, vals, finfo):
             """Accounting + candidate recording for one finished
@@ -322,6 +479,287 @@ class SearchEngine(_ref.SearchEngine):
             return None
         if not tracker.finish():
             return None
-        return _ref.finalize_candidates(
+        return finalize_candidates(
             pat, cfg.semantics, s, base, file_size, per_group, candidate_info
         )
+
+    # ------------------------------------------------------------------
+    def _scan_host(self, pat, data, file_size, blocks, progress, aborted,
+                   timer):
+        """Small-input latency path: dense scan on the HOST, no device.
+
+        The reference's whole benchmark range is 128 KiB-16 MiB
+        (``benchmarks/bench_search.cpp:70``) with a 512 KiB default block
+        (``search_engine.hpp:36``); at those sizes a device dispatch's
+        fixed cost exceeds the entire scan, so searches at or below
+        ``host_latency_threshold_bytes`` run the C dense scanner
+        (``native/mm_walker.cpp:mm_dense_scan_*``, ~host memory bandwidth)
+        over each alignment grid and feed the identical per-(block,
+        alignment) finalize as the device path.  Slice structure mirrors
+        ``_scan_dense``'s chunk loop so progress/abort behave identically.
+
+        Multi-MB files scan slices over a ≤``preferred_num_threads`` pool
+        (default: hardware concurrency — the reference engine's own
+        default, ``search_engine.hpp:35``); the C scanner releases the
+        GIL, so per-core memory bandwidth adds up.  Progress stays one
+        callback per logical block (equal float increments commute across
+        completion order) and the final candidate set is order-independent
+        (``finalize_candidates`` sorts per group).
+        """
+        cfg = self.config
+        s = cfg.element_width
+        L = pat.length
+        base = cfg.preferred_search_block_size
+        timer.stats.host_routed = True
+
+        per_group: dict = {}
+        candidate_info: dict = {}
+        n_threads = cfg.preferred_num_threads or (os.cpu_count() or 1)
+        # persistent pool (module-level executor): the crossover of the
+        # 2-thread win sits near 4 MiB
+        use_pool = n_threads > 1 and file_size >= 4 * 1024 * 1024
+        # responsive abort/progress on multi-MB files without hurting the
+        # scanner's throughput (slices are >> its internal block); with a
+        # pool, enough slices that every worker stays busy
+        slice_bytes = 8 * 1024 * 1024
+        if use_pool:
+            slice_bytes = min(
+                slice_bytes,
+                max(1024 * 1024, file_size // (2 * n_threads)),
+            )
+        slice_elems = max(L, slice_bytes // s)
+        grids = []
+        for a in range(s):
+            if self._element_grid(file_size, a) >= L:
+                with timer.stage("decode"):
+                    # zero-copy even for 16-bit big-endian: the C scanner
+                    # byteswaps on load (host_grid_view)
+                    arr, bswap = host_grid_view(
+                        data, file_size, s, cfg.endianness, a
+                    )
+                    grids.append((a, arr, bswap))
+        max_grid = max(
+            (self._element_grid(file_size, a) for a in range(s)), default=0
+        )
+        n_slices = max(1, -(-max_grid // slice_elems))
+        tracker = _BlockProgress(len(blocks), base, progress, aborted)
+
+        def record(e0, a, offs, vals):
+            # slices own starts within [0, slice_elems)
+            keep = offs < slice_elems
+            offs, vals = offs[keep], vals[keep]
+            for off, val in zip(offs.tolist(), vals.tolist()):
+                e_global = e0 + off
+                byte_off = a + e_global * s
+                timer.stats.candidates += 1
+                block_id = byte_off // base
+                per_group.setdefault((block_id, a), []).append(e_global)
+                candidate_info[(a, e_global)] = (byte_off, val)
+
+        if use_pool:
+            jobs = []
+            for k in range(n_slices):
+                e0 = k * slice_elems
+                for a, arr, bswap in grids:
+                    if e0 >= len(arr):
+                        continue
+                    count_here = min(slice_elems + L - 1, len(arr) - e0)
+                    if count_here < L:
+                        continue
+                    jobs.append((k, e0, a, arr, bswap, count_here))
+            slice_jobs: dict = {}
+            for k, *_ in jobs:
+                slice_jobs[k] = slice_jobs.get(k, 0) + 1
+            done_slices = 0
+            t0 = time.perf_counter()
+            pool = _host_pool(n_threads)
+            futs = {
+                pool.submit(
+                    host_candidates_values, pat,
+                    arr[e0 : e0 + count_here], bswap,
+                ): (k, e0, a, count_here)
+                for k, e0, a, arr, bswap, count_here in jobs
+            }
+            try:
+                for fut in concurrent.futures.as_completed(futs):
+                    k, e0, a, count_here = futs[fut]
+                    offs, vals = fut.result()
+                    timer.stats.bytes_scanned += count_here * s
+                    record(e0, a, offs, vals)
+                    slice_jobs[k] -= 1
+                    if slice_jobs[k] == 0:
+                        done_slices += 1
+                        # equal per-block increments commute, so
+                        # advancing by COMPLETED slice count emits the
+                        # exact sequential callback sequence
+                        if not tracker.advance_to(
+                            min(file_size,
+                                done_slices * slice_elems * s),
+                            final=(done_slices == n_slices),
+                        ):
+                            return None
+            finally:
+                for fut in futs:
+                    fut.cancel()
+                # stage timing must record on the abort path too
+                timer.stats.stage_seconds["host_scan"] = (
+                    timer.stats.stage_seconds.get("host_scan", 0.0)
+                    + time.perf_counter()
+                    - t0
+                )
+            if not tracker.finish():
+                return None
+            return finalize_candidates(
+                pat, cfg.semantics, s, base, file_size, per_group,
+                candidate_info,
+            )
+
+        for k in range(n_slices):
+            if aborted():
+                return None
+            e0 = k * slice_elems
+            for a, arr, bswap in grids:
+                n_a = len(arr)
+                if e0 >= n_a:
+                    continue
+                count_here = min(slice_elems + L - 1, n_a - e0)
+                if count_here < L:
+                    continue
+                with timer.stage("host_scan"):
+                    offs, vals = host_candidates_values(
+                        pat, arr[e0 : e0 + count_here], bswap
+                    )
+                timer.stats.bytes_scanned += count_here * s
+                record(e0, a, offs, vals)
+            bytes_done = min(file_size, (e0 + slice_elems) * s)
+            if not tracker.advance_to(bytes_done, final=(k == n_slices - 1)):
+                return None
+        if not tracker.finish():
+            return None
+        return finalize_candidates(
+            pat, cfg.semantics, s, base, file_size, per_group, candidate_info
+        )
+
+    # ------------------------------------------------------------------
+    def _scan_reference(self, pat, data, file_size, blocks, progress, aborted,
+                        timer):
+        """Exact reference semantics: sequential walk per (block, alignment),
+        run over a thread pool of ``preferred_num_threads`` workers — the
+        mirror of the reference's ≤N concurrent ``std::async`` futures
+        (``search_engine.cpp:82-175``; default = hardware concurrency,
+        ``search_engine.hpp:35``).  The native walker is a ctypes call that
+        releases the GIL, so block walks genuinely run in parallel; one
+        progress callback fires per completed block (float accumulation of
+        equal increments is completion-order independent, matching the
+        reference's mutex-guarded accumulator, ``:161-165``).
+        """
+        cfg = self.config
+        s = cfg.element_width
+        results = []
+        tracker = _BlockProgress(len(blocks), cfg.preferred_search_block_size,
+                                 progress, aborted)
+
+        def walk_block(offset, size):
+            """Worker lambda mirror (``search_engine.cpp:107-168``): decode
+            both alignment grids of one block, walk them, return per-match
+            (byte_off, vmap) plus the bytes walked."""
+            raw = data[offset : offset + size]
+            out = []
+            walked_bytes = 0
+            for a in range(s):
+                count = max(0, (size - a) // s)
+                # zero-copy element views where the layout allows (8-bit and
+                # 16-bit-LE walk the memmap bytes in place)
+                arr = decode_grid_host(raw, size, s, cfg.endianness, a)
+                for pos, vmap in reference_walk(pat, arr):
+                    out.append((offset + pos * s + a, vmap))
+                walked_bytes += count * s
+            return out, walked_bytes
+
+        n_threads = cfg.preferred_num_threads or (os.cpu_count() or 1)
+
+        t_walk0 = time.perf_counter()
+        if n_threads <= 1 or len(blocks) <= 1:
+            # single worker: walk inline (no pool overhead)
+            for offset, size in blocks:
+                if aborted():
+                    return None
+                with timer.stage("reference_walk"):
+                    block_results, walked_bytes = walk_block(offset, size)
+                results.extend(block_results)
+                timer.stats.bytes_scanned += walked_bytes
+                if not tracker.step():
+                    return None
+        else:
+            # ≤ n_threads workers over the block queue, harvested in
+            # completion order like the engine thread's future loop
+            # (``:83-102``).  On abort, queued blocks are cancelled and
+            # only the ≤ n_threads walks already running are awaited —
+            # the reference likewise joins in-flight workers before
+            # returning (``search_engine.cpp:177-187``).
+            try:
+                with concurrent.futures.ThreadPoolExecutor(
+                    max_workers=n_threads
+                ) as pool:
+                    futures = {
+                        pool.submit(walk_block, off, sz): (off, sz)
+                        for off, sz in blocks
+                    }
+                    try:
+                        for fut in concurrent.futures.as_completed(futures):
+                            block_results, walked_bytes = fut.result()
+                            results.extend(block_results)
+                            timer.stats.bytes_scanned += walked_bytes
+                            if not tracker.step():
+                                return None
+                    finally:
+                        for fut in futures:
+                            fut.cancel()
+            finally:
+                timer.stats.stage_seconds["reference_walk"] = (
+                    timer.stats.stage_seconds.get("reference_walk", 0.0)
+                    + time.perf_counter()
+                    - t_walk0
+                )
+        return results
+
+
+class _BlockProgress:
+    """Reference-parity progress accounting: ``float`` accumulation of
+    ``100/num_blocks`` per completed block (``search_engine.cpp:75-80,
+    161-165``), one callback per block, abort checked after each callback."""
+
+    def __init__(self, num_blocks, base, progress, aborted):
+        self.num_blocks = num_blocks
+        self.base = base
+        self.progress = progress
+        self.aborted = aborted
+        self.total = np.float32(0.0)
+        self.inc = np.float32(100.0) / np.float32(max(1, num_blocks))
+        self.done = 0
+
+    def step(self) -> bool:
+        """One block finished → callback; returns False on abort."""
+        self.total = np.float32(self.total + self.inc)
+        self.done += 1
+        self.progress(int(self.total), SearchStep.SEARCHING)
+        return not self.aborted()
+
+    def advance_to(self, bytes_done: int, final: bool) -> bool:
+        """Emit callbacks for blocks fully covered up to *bytes_done*."""
+        target = self.num_blocks if final else min(
+            self.num_blocks, bytes_done // self.base
+        )
+        while self.done < target:
+            if not self.step():
+                return False
+        return True
+
+    def finish(self) -> bool:
+        return self.advance_to(0, final=True) if self.done < self.num_blocks else True
+
+
+def _as_seq(keyword) -> Sequence:
+    if keyword is None:
+        return ()
+    return keyword

@@ -18,11 +18,12 @@ Example::
                                            "wildcard": "*"}])
 
 Block grouping, suppression and the block-fit filter are applied per
-keyword by the reference's ``engine.finalize_candidates``; REFERENCE
-semantics run the port's engine once per keyword.  The reference module
-imports jax, so its jax-free methods ``_config``, ``_finalize_all`` and
-``_decode_grid`` are copied here under their names
-(``tests/test_torch_multi.py`` holds them equal).
+keyword by the port's copy of ``engine.finalize_candidates``; REFERENCE
+semantics run the port's engine once per keyword.  The JAX module's
+host-side methods ``_config``, ``_finalize_all`` and ``_decode_grid`` are
+copied here under their names (``tests/test_torch_multi.py`` holds them
+equal).  ``endianness`` and ``semantics`` must be the port's enums: a
+JAX-package member raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -33,15 +34,13 @@ from typing import List, Sequence, Union
 import numpy as np
 import torch
 
-from monkey_moore_tpu.config import (
+from .carry import require_own
+from .config import (
     Endianness,
     MatchSemantics,
     SearchConfig,
     SearchResult,
 )
-from monkey_moore_tpu.engine import finalize_candidates
-from monkey_moore_tpu.preview import decode_elements, generate_preview
-
 from .corpus import get_resident_corpus
 from .dense import (
     TILE_ELEMS,
@@ -49,9 +48,10 @@ from .dense import (
     fused_count_extract_multi,
     fused_multi_eligible,
 )
-from .engine import SearchEngine, resolve_device
+from .engine import SearchEngine, finalize_candidates, resolve_device
 from .ops.host import canonical_check_tables, extract_hot_tiles
 from .ops.scan_torch import tile_counts_multi
+from .preview import decode_elements, generate_preview
 
 __all__ = ["MultiSearcher"]
 
@@ -75,6 +75,8 @@ class MultiSearcher:
         devices=None,
         device="cuda",
     ):
+        require_own(endianness, Endianness, "MultiSearcher: endianness")
+        require_own(semantics, MatchSemantics, "MultiSearcher: semantics")
         self.file_path = Path(file_path)
         self.element_width = element_width
         self.endianness = endianness

@@ -58,6 +58,10 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
     ],
+    "mm_load_sum": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ],
 }
 
 _lock = threading.Lock()

@@ -16,9 +16,9 @@ from typing import NamedTuple
 
 import numpy as np
 
-from monkey_moore_tpu.ops.recover import recovery_shifts
-from monkey_moore_tpu.ops.scan_np import match_positions_np
-from monkey_moore_tpu.pattern import CompiledPattern
+from ..pattern import CompiledPattern
+from .recover import recovery_shifts
+from .scan_np import match_positions_np
 
 __all__ = [
     "LANES",

@@ -62,8 +62,7 @@ def _probe_cases(torch, dev):
     """``(name, kernel call, plain call)`` per probe launch, on *dev*."""
     import numpy as np
 
-    from monkey_moore_tpu.pattern import compile_pattern
-
+    from ..pattern import compile_pattern
     from . import scan_cuda
 
     # byte ramps: "abcde" (diffs of 1) matches almost every window

@@ -1,7 +1,7 @@
 """The fused device step's kernels — counterpart of the JAX package's
 ``ops/scan_pallas.py`` (the single-device part of it).
 
-Five kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
+Six kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
 
 - :func:`tile_counts` (kernel A, ``csrc/tile_counts.cu``) replaces
   ``scan_pallas._tile_counts_swar_call``;
@@ -12,7 +12,10 @@ Five kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
 - :func:`tile_counts_elems` (kernel D, ``csrc/tile_counts_elems.cu``)
   replaces ``scan_pallas._tile_counts_call``;
 - :func:`gather_tiles_block` (kernel E, ``csrc/gather_tiles_block.cu``)
-  replaces ``scan_pallas._gather_tiles_call``.
+  replaces ``scan_pallas._gather_tiles_call``;
+- :func:`load_sum` (kernels I and J, ``csrc/load_sum.cu``) replaces the
+  speed-of-light load kernel of ``bench.py`` and ``tools/perf_probe.py``
+  (``load_kernel`` / ``load_call``).
 
 Each wrapper checks its operands, allocates its output, and launches its
 kernel on the current stream for a CUDA tensor, or runs its plain PyTorch
@@ -38,8 +41,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from monkey_moore_tpu.pattern import CompiledPattern
-
+from ..pattern import CompiledPattern
 from .host import canonical_check_tables, multi_pattern_tables, prefilter_checks
 from .scan_torch import (
     as_elements,
@@ -70,11 +72,14 @@ __all__ = [
     "gather_tiles_block",
     "gather_tiles_block_plain",
     "tile_counts_gather_elems",
+    "load_sum",
+    "load_sum_plain",
 ]
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0,
-                 "tile_counts_elems": 0, "gather_tiles_block": 0}
+                 "tile_counts_elems": 0, "gather_tiles_block": 0,
+                 "load_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -560,3 +565,47 @@ def tile_counts_multi_gather(
         )
         for k, pat in enumerate(pats)
     ])
+
+
+def load_sum(
+    words: torch.Tensor, tile_words: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernels I and J, the speed-of-light load: ``(sums, total)``, the
+    int32 sum of each of the ``NT = words.numel() // tile_words`` whole
+    tiles of ``tile_words`` words and the 0-d int32 total of those sums,
+    both with int32 wraparound (the TPU kernel's ``jnp.sum`` of each
+    ``(2048, 256)`` block and ``load_call``'s sum of the block sums).
+    Words past the last whole tile are not read."""
+    _check(words.dtype == torch.int32 and words.dim() == 1
+           and words.is_contiguous(),
+           "words must be a contiguous 1-D int32 tensor")
+    _check(tile_words > 0, "tile_words must be positive")
+    if not _kernel_device(words):
+        return load_sum_plain(words, tile_words)
+    from ._build import load_library
+
+    lib = load_library()
+    n_tiles = words.numel() // tile_words
+    sums = torch.empty(n_tiles, dtype=torch.int32, device=words.device)
+    total = torch.empty((), dtype=torch.int32, device=words.device)
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mm_load_sum(words.data_ptr(), n_tiles, tile_words,
+                             sums.data_ptr(), total.data_ptr(), stream)
+    _raise_on(rc, "load_sum")
+    launch_counts["load_sum"] += 1
+    return sums, total
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced mod 2^32 into int32's range."""
+    return (torch.remainder(x + 2**31, 2**32) - 2**31).to(torch.int32)
+
+
+def load_sum_plain(words, tile_words) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`load_sum`: the tiles summed in int64
+    and wrapped to int32."""
+    n_tiles = words.numel() // tile_words
+    sums = _wrap_int32(words[: n_tiles * tile_words].view(
+        n_tiles, tile_words).sum(1, dtype=torch.int64))
+    return sums, _wrap_int32(sums.sum(dtype=torch.int64))

@@ -20,8 +20,9 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from monkey_moore_tpu.ops.recover import recovery_shifts
-from monkey_moore_tpu.pattern import CompiledPattern
+from ..carry import require_own
+from ..pattern import CompiledPattern
+from .recover import recovery_shifts
 
 __all__ = [
     "operand_cache",
@@ -41,7 +42,10 @@ _operand_cache_lock = threading.Lock()
 
 def operand_cache(pat: CompiledPattern) -> dict:
     """Per-pattern memo of small device operands.  Building one uploads it
-    (a host sync), so each search step reuses the copy made by the first."""
+    (a host sync), so each search step reuses the copy made by the first.
+    *pat* must be the port's ``CompiledPattern`` (``TypeError`` otherwise):
+    every device operand of a pattern is built here."""
+    require_own(pat, CompiledPattern, "pattern")
     with _operand_cache_lock:
         cache = getattr(pat, "_torch_operands", None)
         if cache is None:

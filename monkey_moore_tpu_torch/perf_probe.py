@@ -1,0 +1,239 @@
+"""Roofline and breakdown probe of the PyTorch port's scan on one CUDA card.
+
+The counterpart of the repository's ``tools/perf_probe.py`` (the JAX
+package's probe, which stays as it is), with its arguments and its
+``emit`` records: one JSON object per line, ``{"probe": name, "ms": ...,
+"gbps": ...}``.  Every timing ends in a result fetch to the host (a
+scalar, the counts, or the fused step's result buffer), so the device work
+is inside it.  The corpus is ``--mb`` MiB of seeded random words generated
+on the card (``bench.make_corpus``).
+
+Stages (``--stage``, comma-separated; default ``floor,roofline,kernel``):
+
+  floor     a trivial reduction with a scalar fetch, and the copy of a
+            counts-sized array to the host
+  roofline  device-memory read speed of light: ``torch.sum`` over the
+            corpus, single pass and two passes in one call
+  kernel    counts kernel A across ``--tile-rows`` heights (1024 8-bit
+            elements per row), counts fetched each iteration
+  variants  wildcard ("ab*de"), 16-bit and 12-character-keyword counts
+  e2e       the two-call step at 64 KiB count tiles: counts only, hot-tile
+            extraction only, full step
+  fused     the production fused step (``dense.fused_count_extract``) at
+            8 KiB count tiles, "abcde" and "ab*de"
+  sol       speed-of-light ratio: counts kernel A against the pure-load
+            kernel J (``ops.scan_cuda.load_sum``) at the same 2 MiB tiles
+
+The JAX probe's ``ab`` stage is not ported: its formulation switch has no
+counterpart, and its gather comparison waits (``ROADMAP.md``).
+
+``python -m monkey_moore_tpu_torch.perf_probe --mb 4096 --stage all`` runs
+on the card; ``--device cpu`` runs the kernels' plain versions, for tests
+only.  Without a card it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .bench import make_corpus, sol_times, tile_view
+from .dense import (
+    extract_hot_tiles_device,
+    fused_count_extract,
+    resolve_device,
+    tile_counts,
+)
+from .ops.host import LANES
+from .ops.scan_cuda import launch_counts, reset_launch_counts
+from .pattern import compile_pattern
+
+__all__ = ["STAGES", "emit", "main"]
+
+STAGES = ("floor", "roofline", "kernel", "variants", "e2e", "fused", "sol")
+SEED = 0  # the corpus's generator seed
+
+
+def emit(name, seconds, nbytes=None, **extra):
+    rec = {"probe": name, "ms": seconds * 1e3}
+    if nbytes:
+        rec["gbps"] = nbytes / seconds / 1e9
+    rec.update(extra)
+    print(json.dumps(rec), flush=True)
+
+
+def make_timeit(iters):
+    def timeit(fn):
+        fn()  # first call / warm
+        fn()
+        best = float("inf")
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    return timeit
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mb", type=int, default=4096, help="corpus MiB (u8)")
+    ap.add_argument("--iters", type=int, default=8)
+    ap.add_argument(
+        "--stage", default="floor,roofline,kernel",
+        help="comma list: " + ",".join(STAGES) + ",all",
+    )
+    ap.add_argument(
+        "--tile-rows", default="256,1024,2048",
+        help="comma list of kernel tile heights for the kernel stage",
+    )
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu (plain versions, tests)")
+    args = ap.parse_args(argv)
+    stages = set(args.stage.split(","))
+    if "all" in stages:
+        stages = set(STAGES)
+    unknown = stages - set(STAGES)
+    if unknown:
+        print(f"perf_probe: stages not ported: {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+    if torch.device(args.device).type == "cuda" and not (
+            torch.cuda.is_available()):
+        print("perf_probe: no CUDA device", file=sys.stderr)
+        return 1
+    device = resolve_device(args.device, "perf_probe")
+    timeit = make_timeit(args.iters)
+    on_card = device.type == "cuda"
+    print(json.dumps({
+        "probe": "device",
+        "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
+        "mode": "cuda" if on_card else "plain",
+        "mb": args.mb,
+    }), flush=True)
+
+    n = args.mb * 1024 * 1024
+    tile_rows_list = [int(t) for t in args.tile_rows.split(",")]
+    halo = max(tile_rows_list + [2048]) * LANES  # the largest count tile
+    t0 = time.perf_counter()
+    words = make_corpus(n, SEED, device, halo_bytes=halo)
+    int(words[-1])  # the fill is done
+    emit("corpus_fill", time.perf_counter() - t0, n)
+    flat = words[: n // 4]
+
+    pat = compile_pattern("abcde")  # the reference benchmark keyword
+
+    if "floor" in stages:
+        one = torch.ones((8, 128), dtype=torch.int32, device=device)
+        emit("dispatch_floor_scalar_fetch",
+             timeit(lambda: int(torch.sum(one))))
+        counts_sized = torch.zeros(n // (64 * 1024), dtype=torch.int32,
+                                   device=device)
+        emit("counts_d2h_only", timeit(lambda: counts_sized.cpu()))
+
+    if "roofline" in stages:
+        emit("hbm_read_sum",
+             timeit(lambda: int(torch.sum(flat, dtype=torch.int32))), n)
+        # two passes in one call; the reversed copy is corpus-sized, so it
+        # only runs where half the device memory is free
+        try:
+            emit("hbm_read_sum_x2", timeit(lambda: int(
+                torch.sum(flat, dtype=torch.int32)
+                + torch.sum(flat.flip(0), dtype=torch.int32))), 2 * n)
+        except torch.cuda.OutOfMemoryError as e:
+            print(json.dumps({"probe": "hbm_read_sum_x2",
+                              "skipped": str(e)[:120]}), flush=True)
+
+    if "kernel" in stages:
+        for tile_rows in tile_rows_list:
+            te = tile_rows * LANES
+            data = tile_view(words, n, te)
+
+            def step(data=data, te=te):
+                return tile_counts(pat, data, n, tile_elems=te)
+
+            emit(f"swar_counts_tile_rows_{tile_rows}", timeit(step), n)
+            print(json.dumps({"probe": f"counts_sum_{tile_rows}",
+                              "sum": int(step().sum())}), flush=True)
+
+    if "variants" in stages:
+        cases = [
+            ("wildcard_ab*de", compile_pattern("ab*de", "*"), n),
+            ("16bit", compile_pattern("abcde", dtype=np.uint16), n // 2),
+            ("L12", compile_pattern("abcdefghijkl"), n),
+        ]
+        tile_bytes = 1024 * LANES
+        data = tile_view(words, n, tile_bytes)
+        for name, p, valid in cases:
+            te = tile_bytes // np.dtype(p.dtype).itemsize
+
+            def step(p=p, valid=valid, te=te):
+                return tile_counts(p, data, valid, tile_elems=te)
+
+            emit(f"swar_{name}_tile_rows_1024", timeit(step), n)
+
+    if "e2e" in stages:
+        # the two-call step: 64 KiB count tiles, hot tiles fetched in one
+        # batched gather
+        te = 64 * LANES
+        data = tile_view(words, n, te)
+
+        def counts_only():
+            return tile_counts(pat, data, n, tile_elems=te)
+
+        emit("e2e_counts_only_64k_tiles", timeit(counts_only), n)
+        counts = counts_only()
+        hot = np.nonzero(counts)[0]
+        print(json.dumps({"probe": "hot_tiles", "n": int(len(hot)),
+                          "sum": int(counts.sum())}), flush=True)
+        if len(hot):
+            emit("e2e_extract_only", timeit(
+                lambda: extract_hot_tiles_device(pat, data, counts, n, te)))
+
+        def full_step():
+            c = tile_counts(pat, data, n, tile_elems=te)
+            if c.any():
+                extract_hot_tiles_device(pat, data, c, n, te)
+            return c
+
+        emit("e2e_full_step", timeit(full_step), n)
+
+    if "fused" in stages:
+        te = 8 * LANES
+        data = tile_view(words, n, te)
+        for kw in ("abcde", "ab*de"):
+            p = compile_pattern(kw, "*" if "*" in kw else 0)
+
+            def fstep(p=p):
+                return fused_count_extract(p, data, n, tile_elems=te)[2]
+
+            info = fstep()
+            emit(f"fused_step_{kw.replace('*', 'W')}", timeit(fstep), n,
+                 hot=info.hot_tiles)
+
+    if "sol" in stages:
+        # the counts kernel against a pure load+sum kernel (J) with exactly
+        # its tile geometry, same process: kernel_time / pure_load_time is
+        # how close the scan runs to its own memory pipeline's speed of
+        # light
+        reset_launch_counts()
+        t_load, t_kernel, _ = sol_times(words, n, pat, args.iters)
+        emit("sol_pure_load_sum", t_load, n)
+        emit("sol_counts_kernel", t_kernel, n)
+        print(json.dumps({
+            "probe": "sol_ratio",
+            "kernel_over_pure_load": t_kernel / t_load,
+            "launches": launch_counts["load_sum"],
+            "note": "1.0 = scan at its memory pipeline's speed of light",
+        }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

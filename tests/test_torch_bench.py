@@ -1,0 +1,267 @@
+"""Kernel I/J (the speed-of-light load) and the port's measurement entry
+points, on the CPU:
+
+- ``scan_cuda.load_sum`` (which runs ``load_sum_plain`` on CPU tensors)
+  against the TPU kernel as ``bench.py:234-255`` writes it, rebuilt here
+  and run with ``pl.pallas_call(..., interpret=True)``, and against
+  ``jnp.sum(x, dtype=jnp.int32)``, on random words whose sums overflow;
+- ``python -m monkey_moore_tpu_torch.bench`` prints one record with
+  exactly ``bench.py``'s keys, and ``perf_probe`` prints the probe names of
+  ``tools/perf_probe.py``;
+- the bench's fused step finds the same offsets and values as the JAX
+  package's ``dense.fused_count_extract`` on the same words;
+- without a card both entry points exit 1 with "no CUDA device".
+
+Inputs are made with numpy (and ``torch.Generator``) from fixed seeds.
+Tolerance: exact equality — every value is an integer.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from monkey_moore_tpu import dense as jdense
+from monkey_moore_tpu.pattern import compile_pattern as jcompile
+from monkey_moore_tpu_torch import bench, perf_probe
+from monkey_moore_tpu_torch.dense import fused_count_extract
+from monkey_moore_tpu_torch.ops import scan_cuda
+from monkey_moore_tpu_torch.pattern import compile_pattern
+
+ROOT = Path(__file__).resolve().parent.parent
+LANES32 = 256  # ``bench.py``'s lanes32 = LANES // 4
+
+
+def tpu_load_call(x2d: np.ndarray, tr: int) -> int:
+    """``bench.py:234-255`` as written, in interpret mode: the wrapped int32
+    sum of every ``(tr, 256)`` block, then of the block sums."""
+    nt = x2d.shape[0] // tr
+
+    def load_kernel(tile_ref, out_ref):
+        out_ref[:] = jnp.broadcast_to(jnp.sum(tile_ref[:]), (8, 128))
+
+    @jax.jit
+    def load_call(x):
+        raw = pl.pallas_call(
+            load_kernel,
+            grid=(nt,),
+            in_specs=[pl.BlockSpec((tr, LANES32), lambda i: (i, 0),
+                                   memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec((8, 128), lambda i: (i, 0)),
+            out_shape=jax.ShapeDtypeStruct((nt * 8, 128), jnp.int32),
+            interpret=True,
+        )(x)
+        return raw[::8, 0], jnp.sum(raw[::8, 0])
+
+    sums, total = load_call(jnp.asarray(x2d))
+    return np.asarray(sums), int(total)
+
+
+@pytest.mark.parametrize("tr,nt,extra_rows", [
+    (2048, 1, 0), (2048, 3, 5), (8, 7, 3),
+], ids=["one-2MiB-tile", "three-2MiB-tiles-ragged", "small-tiles"])
+def test_load_sum_equals_tpu_kernel_interpret(tr, nt, extra_rows):
+    """Per-tile sums and the total against the Pallas kernel; rows past the
+    last whole tile are not read by either."""
+    rng = np.random.default_rng(tr + nt)
+    x2d = rng.integers(-(2**31), 2**31, ((nt * tr + extra_rows), LANES32),
+                       dtype=np.int64).astype(np.int32)
+    want_sums, want_total = tpu_load_call(x2d, tr)
+    words = torch.from_numpy(x2d.reshape(-1))
+    sums, total = scan_cuda.load_sum(words, tr * LANES32)
+    assert sums.dtype == torch.int32 and total.dtype == torch.int32
+    assert total.shape == () and sums.shape == (nt,)
+    assert sums.tolist() == want_sums.tolist()
+    assert int(total) == want_total
+    # every sum overflows int32 many times over, so wrapping is exercised
+    assert np.abs(x2d[: nt * tr].astype(np.int64).sum()) > 2**31
+
+
+@pytest.mark.parametrize("n_words,tile_words", [
+    (4096, 1024), (5000, 1024), (3, 4), (1 << 20, 1 << 17), (999, 7),
+])
+def test_load_sum_equals_jnp_sum(n_words, tile_words):
+    rng = np.random.default_rng(n_words)
+    host = rng.integers(-(2**31), 2**31, n_words, dtype=np.int64)
+    host[:4] = [2**31 - 1, 2**31 - 1, -(2**31), -(2**31)][:n_words]
+    host = host.astype(np.int32)
+    n_tiles = n_words // tile_words
+    body = host[: n_tiles * tile_words]
+    sums, total = scan_cuda.load_sum(torch.from_numpy(host), tile_words)
+    assert int(total) == int(jnp.sum(jnp.asarray(body), dtype=jnp.int32))
+    want = [int(jnp.sum(jnp.asarray(t), dtype=jnp.int32))
+            for t in body.reshape(n_tiles, tile_words)] if n_tiles else []
+    assert sums.tolist() == want
+    assert torch.equal(sums, scan_cuda.load_sum_plain(
+        torch.from_numpy(host), tile_words)[0])
+
+
+def test_load_sum_rejects_bad_operands():
+    words = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        scan_cuda.load_sum(words.to(torch.int64), 16)
+    with pytest.raises(ValueError):
+        scan_cuda.load_sum(words.view(8, 8), 16)
+    with pytest.raises(ValueError):
+        scan_cuda.load_sum(words, 0)
+    with pytest.raises(RuntimeError):  # no kernel and no plain version
+        scan_cuda.load_sum(words.to("meta"), 16)
+
+
+# ---- the entry points -----------------------------------------------------
+
+#: ``bench.py:302-334``'s record keys (``pct_hbm_roofline`` needs a card
+#: whose published bandwidth the table knows)
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline",
+              "pure_load_bytes_per_s", "pure_load_pipelined_bytes_per_s",
+              "kernel_over_pure_load", "pct_of_pure_load",
+              "pct_of_pipelined_pure_load", "fused_step_over_pure_load"]
+
+
+def test_bench_keys_are_bench_py_keys():
+    text = (ROOT / "bench.py").read_text()
+    for key in BENCH_KEYS + ["pct_hbm_roofline"]:
+        assert f'"{key}"' in text, key
+
+
+def test_bench_main_prints_bench_py_record(monkeypatch, capsys):
+    monkeypatch.setenv("MMTPU_BENCH_ITERS", "3")
+    monkeypatch.setenv("MMTPU_BENCH_WARMUP", "1")
+    assert bench.main(["--device", "cpu", "--mb", "4"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    record = json.loads(lines[0])
+    assert list(record) == BENCH_KEYS
+    assert record["metric"] == "relative_search_scan_8bit_bytes_per_s"
+    assert record["unit"] == "bytes/s" and record["value"] > 0
+    assert record["vs_baseline"] == (
+        record["value"] / bench.reference_baseline())
+
+
+def test_bench_settings_defaults(monkeypatch):
+    for name in ("MB", "WARMUP", "ITERS", "TILE_ROWS", "KCAP", "PIPELINE"):
+        monkeypatch.delenv(f"MMTPU_BENCH_{name}", raising=False)
+    assert bench.settings() == {"mb": 12288, "warmup": 3, "iters": 15,
+                                "tile_rows": 8, "k_cap": None, "depth": 3}
+    assert bench.HBM_GBPS == {"NVIDIA H100 80GB HBM3": 3350.0}
+
+
+def _probe_names(stage, capsys, mb=2):
+    assert perf_probe.main(["--device", "cpu", "--mb", str(mb), "--iters",
+                            "1", "--stage", stage]) == 0
+    return [json.loads(line)["probe"]
+            for line in capsys.readouterr().out.strip().splitlines()]
+
+
+def test_perf_probe_sol_and_fused_records(capsys):
+    names = _probe_names("sol,fused", capsys)
+    assert names == ["device", "corpus_fill", "fused_step_abcde",
+                     "fused_step_abWde", "sol_pure_load_sum",
+                     "sol_counts_kernel", "sol_ratio"]
+
+
+def test_perf_probe_sol_ratio_counts_kernel_j(capsys):
+    """The ``sol_ratio`` record carries kernel J's launches in the stage;
+    on the CPU the wrapper runs its plain version, which launches none."""
+    assert perf_probe.main(["--device", "cpu", "--mb", "2", "--iters", "1",
+                            "--stage", "sol"]) == 0
+    ratio = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ratio["probe"] == "sol_ratio"
+    assert ratio["launches"] == 0 and ratio["kernel_over_pure_load"] > 0
+
+
+def test_sol_times_loads_the_whole_load_tiles(monkeypatch):
+    """``sol_times`` loads exactly the corpus's whole 2 MiB tiles, at the
+    load kernel's tile, and returns their bytes."""
+    seen = []
+
+    def spy(words, tile_words):
+        seen.append((words.numel(), tile_words))
+        return scan_cuda.load_sum_plain(words, tile_words)
+
+    monkeypatch.setattr(bench, "load_sum", spy)
+    n = 2 * bench.LOAD_TILE_BYTES
+    words = bench.make_corpus(n, 5, "cpu")
+    t_load, t_kernel, load_bytes = bench.sol_times(
+        words, n, compile_pattern(bench.KEYWORD), 2)
+    assert load_bytes == n and t_load > 0 and t_kernel > 0
+    assert seen == [(n // 4, bench.LOAD_TILE_WORDS)] * 3
+
+
+def test_perf_probe_names_are_the_jax_probes(capsys):
+    """Every record name of every ported stage is one ``tools/
+    perf_probe.py`` emits (its f-string names matched as patterns)."""
+    text = (ROOT / "tools" / "perf_probe.py").read_text()
+    literal = set(re.findall(r'"probe": "(\w+)"', text)) | set(
+        re.findall(r'emit\(\s*"(\w+)"', text))
+    patterns = [re.sub(r"\\\{.*?\\\}", ".+", re.escape(p))
+                for p in re.findall(r'f"([^"]*\{[^"]+)"', text)]
+    names = _probe_names("all", capsys)
+    for name in names:
+        assert name in literal or any(
+            re.fullmatch(p, name) for p in patterns), name
+    assert {"hbm_read_sum", "swar_counts_tile_rows_2048", "hot_tiles",
+            "e2e_full_step", "sol_ratio"} <= set(names)
+
+
+def test_perf_probe_refuses_the_unported_stage(capsys):
+    assert perf_probe.main(["--device", "cpu", "--stage", "ab"]) == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_bench_fused_step_equals_jax(monkeypatch):
+    """The bench's corpus and fused step (8 Ki-element tiles) against the
+    JAX package's fused step (Pallas in interpret mode at its smallest
+    interpret tile) on the same words: the same offsets and values."""
+    n = 256 * 1024
+    words = bench.make_corpus(n, 7, "cpu", halo_bytes=32 * 1024)
+    raw = words.view(torch.uint8)
+    pat = compile_pattern(bench.KEYWORD)
+    plants = [1, 8190, 65_537, 131_075, n - 5]  # word-unaligned, tile edges
+    for i, off in enumerate(plants):
+        raw[off : off + 5] = torch.tensor(
+            (np.array(pat.keyword) + 11 * i) % 256, dtype=torch.uint8)
+    te = 8 * 1024
+    offs, vals, _ = fused_count_extract(pat, bench.tile_view(words, n, te),
+                                        n, tile_elems=te)
+    jte = 32 * 1024
+    j_offs, j_vals, _ = jdense.fused_count_extract(
+        jcompile(bench.KEYWORD),
+        jnp.asarray(bench.tile_view(words, n, jte).numpy()), n,
+        interpret=True, tile_elems=jte)
+    assert offs.tolist() == j_offs.tolist()
+    assert vals.tolist() == j_vals.tolist()
+    assert set(plants) <= set(offs.tolist())
+
+
+def test_make_corpus_is_seeded_and_padded():
+    a = bench.make_corpus(1 << 20, 3, "cpu", halo_bytes=4096)
+    b = bench.make_corpus(1 << 20, 3, "cpu", halo_bytes=4096)
+    c = bench.make_corpus(1 << 20, 4, "cpu", halo_bytes=4096)
+    assert a.dtype == torch.int32 and a.numel() == (1 << 18) + 1024
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert int(a[1 << 18 :].abs().sum()) == 0
+    assert int(a[: 1 << 18].min()) < 0 < int(a[: 1 << 18].max())
+
+
+@pytest.mark.parametrize("module", ["bench", "perf_probe"])
+def test_entry_points_need_a_card(module):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the run would start")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", f"monkey_moore_tpu_torch.{module}"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 1, proc.stderr
+    assert "no CUDA device" in proc.stderr and proc.stdout == ""

@@ -12,7 +12,9 @@ import pytest
 
 from monkey_moore_tpu import corpus as jcorpus
 from monkey_moore_tpu.config import Endianness
+from monkey_moore_tpu_torch import carry_over
 from monkey_moore_tpu_torch import corpus as tcorpus
+from monkey_moore_tpu_torch.config import Endianness as TEndianness
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +42,8 @@ def test_grid_chunk_equal(corpora, width, endianness, packed):
                 width, endianness, align, e_start, want, packed=packed
             ))
             t = port.grid_chunk(
-                width, endianness, align, e_start, want, packed=packed
+                width, carry_over(endianness), align, e_start, want,
+                packed=packed,
             ).numpy()
             assert t.dtype == j.dtype and t.shape == j.shape
             assert t.tolist() == j.tolist(), (align, e_start, want)
@@ -49,7 +52,7 @@ def test_grid_chunk_equal(corpora, width, endianness, packed):
 def test_grid_chunk_decodes_file_bytes(corpora):
     data, _, port = corpora
     for align in range(2):
-        got = port.grid_chunk(2, Endianness.BIG, align, 5, 200).numpy()
+        got = port.grid_chunk(2, TEndianness.BIG, align, 5, 200).numpy()
         want = data[align + 10 : align + 410].view(">u2").astype(np.uint16)
         assert got.tolist() == want.tolist()
 
@@ -67,7 +70,7 @@ def test_resident_cache(tmp_path):
                                            "cpu") is None  # over the limit
         b = tcorpus.get_resident_corpus(path, 2048, 1 << 20, 4096, "cpu")
         assert b is not a and len(b) >= 2048 + 4096  # more padding needed
-        grid = b.grid_chunk(1, Endianness.LITTLE, 1, 0, 16).tolist()
+        grid = b.grid_chunk(1, TEndianness.LITTLE, 1, 0, 16).tolist()
         assert grid == list(range(1, 17))
     finally:
         tcorpus.clear_corpus_cache()

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from monkey_moore_tpu.config import Endianness, SearchConfig
-from monkey_moore_tpu.pattern import compile_pattern
+from monkey_moore_tpu_torch.config import Endianness, SearchConfig
 from monkey_moore_tpu_torch.ops import scan_cuda
 from monkey_moore_tpu_torch.ops.host import prefilter_checks, wordcmp_run
+from monkey_moore_tpu_torch.pattern import compile_pattern
 
 pytestmark = pytest.mark.cuda
 
@@ -176,7 +176,7 @@ def test_probe_matches_every_kernel(cuda):
 
 
 def test_dense_search_cuda_equals_cpu(cuda):
-    from monkey_moore_tpu.config import MatchSemantics
+    from monkey_moore_tpu_torch.config import MatchSemantics
     from monkey_moore_tpu_torch.dense import dense_search
 
     rng = np.random.default_rng(9)
@@ -283,3 +283,25 @@ def test_multi_searcher_cuda_equals_cpu(cuda, tmp_path):
         [(r.offset, r.values_map) for r in g] for g in want]
     assert [[r.offset for r in g] for g in got] == [
         [17], [150_000], [len(data) - 6], []]
+
+
+@pytest.mark.parametrize("n_words,tile_words,offset", [
+    (64 * 524_288, 524_288, 0),  # tail-free: 64 whole 2 MiB tiles
+    (5 * 524_288 + 777, 524_288, 0),  # ragged: a partial tile left unread
+    (40_000 + 3, 1_001, 1),  # tiles not 16-byte aligned, ragged
+])
+def test_load_sum_kernel_equals_plain_and_torch_sum(cuda, n_words,
+                                                    tile_words, offset):
+    rng = np.random.default_rng(n_words)
+    host = rng.integers(-(2**31), 2**31, n_words + offset).astype(np.int32)
+    words = torch.from_numpy(host).to(cuda)[offset:]
+    before = scan_cuda.launch_counts["load_sum"]
+    sums, total = scan_cuda.load_sum(words, tile_words)
+    torch.cuda.synchronize()
+    assert scan_cuda.launch_counts["load_sum"] == before + 1
+    p_sums, p_total = scan_cuda.load_sum_plain(words, tile_words)
+    n_tiles = n_words // tile_words
+    assert sums.shape == (n_tiles,) and sums.dtype == torch.int32
+    assert torch.equal(sums, p_sums) and int(total) == int(p_total)
+    body = words[: n_tiles * tile_words]
+    assert int(total) == int(torch.sum(body, dtype=torch.int32))

@@ -17,6 +17,7 @@ import torch
 from monkey_moore_tpu import dense as jdense
 from monkey_moore_tpu.ops.scan_pallas import swar_host_view
 from monkey_moore_tpu.pattern import compile_pattern
+from monkey_moore_tpu_torch import carry_over
 from monkey_moore_tpu_torch import dense as tdense
 from monkey_moore_tpu_torch.ops.host import COMBO_HEADER, combo_fields
 
@@ -45,7 +46,8 @@ def _both(pat, arr, n, **kw):
         tile_elems=TE, **kw,
     )
     tp = tdense.fused_count_extract_start(
-        pat, torch.from_numpy(words.copy()), n, tile_elems=TE, **kw,
+        carry_over(pat), torch.from_numpy(words.copy()), n, tile_elems=TE,
+        **kw,
     )
     return jp, tp
 
@@ -146,7 +148,7 @@ def test_all_wildcard_branch_equal(dtype):
         pat, jnp.asarray(arr), n, use_pallas=False, tile_elems=te
     )
     t_offs, t_vals, t_info = tdense.fused_count_extract(
-        pat, torch.from_numpy(arr), n, tile_elems=te
+        carry_over(pat), torch.from_numpy(arr), n, tile_elems=te
     )
     assert t_offs.tolist() == j_offs.tolist() == list(range(n - 3))
     assert t_vals.tolist() == j_vals.tolist()
@@ -162,5 +164,5 @@ def test_tile_counts_equal(kw, wc):
     want = jdense.tile_counts(pat, jnp.asarray(arr), n, use_pallas=False,
                               tile_elems=TE)
     words = torch.from_numpy(swar_host_view(arr).copy())
-    got = tdense.tile_counts(pat, words, n, tile_elems=TE)
+    got = tdense.tile_counts(carry_over(pat), words, n, tile_elems=TE)
     assert got.tolist() == want.tolist()

@@ -39,6 +39,7 @@ from monkey_moore_tpu.ops.scan_pallas import (
     tile_counts_pallas,
 )
 from monkey_moore_tpu.pattern import compile_pattern
+from monkey_moore_tpu_torch import carry_over
 from monkey_moore_tpu_torch import dense as tdense
 from monkey_moore_tpu_torch.ops import scan_cuda, scan_torch
 from monkey_moore_tpu_torch.ops.host import combo_fields
@@ -80,18 +81,19 @@ def test_tile_counts_elems_equal(kw, wc, dtype):
         length=L, tile_elems=TE,
     ))
     elems = torch.from_numpy(arr)
-    checks = scan_cuda.prefilter_operand(pat, "cpu")
+    tpat = carry_over(pat)
+    checks = scan_cuda.prefilter_operand(tpat, "cpu")
     args = dict(tile_elems=TE, length=L, valid_count=n)
     plain = scan_cuda.tile_counts_elems_plain(elems, checks, **args)
     wrapped = scan_cuda.tile_counts_elems(elems, checks, **args)
-    port = tdense.tile_counts(pat, elems, n, tile_elems=TE)
+    port = tdense.tile_counts(tpat, elems, n, tile_elems=TE)
     assert plain.tolist() == want.tolist() == xla.tolist()
     assert wrapped.tolist() == port.tolist() == want.tolist()
     assert want[0] >= 2 and want[2] >= 2
 
 
 def test_tile_counts_elems_rejects_bad_operands():
-    pat = compile_pattern("abcde")
+    pat = carry_over(compile_pattern("abcde"))
     checks = scan_cuda.prefilter_operand(pat, "cpu")
     args = dict(tile_elems=64, length=5, valid_count=100)
     with pytest.raises(ValueError):  # packed words are kernel A's operand
@@ -152,7 +154,7 @@ def _jax_steps(pat, arr, n, **kw):
 
 def _assert_step_equal(pat, arr, n, **kw):
     tp = tdense.fused_count_extract_start(
-        pat, torch.from_numpy(arr.copy()), n, tile_elems=TE, **kw
+        carry_over(pat), torch.from_numpy(arr.copy()), n, tile_elems=TE, **kw
     )
     assert tp.combo_dev is not None  # the fused step, not a host branch
     for jp in _jax_steps(pat, arr, n, **kw):
@@ -224,7 +226,8 @@ def test_fused_body_equals_xla(kw, wc, dtype):
         jnp.asarray([n // te, n % te], dtype=jnp.int32), j_exp, j_rec,
         pairs=pairs, span=te + pat.length - 1, **statics,
     )
-    _, _, t_exp, t_rec = scan_torch.pattern_device_args(pat, "cpu")
+    _, _, t_exp, t_rec = scan_torch.pattern_device_args(carry_over(pat),
+                                                       "cpu")
     t_counts, t_combo = scan_torch.fused_body(
         torch.from_numpy(arr), n, [int(e) for e in exp], pairs, t_exp,
         t_rec, **statics,
@@ -238,7 +241,7 @@ def test_fused_body_equals_xla(kw, wc, dtype):
     for g, w in zip(tf[4:], jf[4:]):
         assert g.tolist() == w.tolist()
     step = scan_cuda.tile_counts_gather_elems(
-        pat, torch.from_numpy(arr), n, te, 4, 8)
+        carry_over(pat), torch.from_numpy(arr), n, te, 4, 8)
     assert torch.equal(step[1], t_combo)
 
 
@@ -252,10 +255,12 @@ def _results(res):
 def test_dense_search_corpora_equal(name, make, semantics):
     pat, data = make()
     want = jdense.dense_search(pat, data, semantics)
-    got = tdense.dense_search(pat, data, semantics, device="cpu")
+    got = tdense.dense_search(carry_over(pat), data, carry_over(semantics),
+                              device="cpu")
     assert _results(got) == _results(want)
     j_offs, j_vals = jdense.dense_candidates(pat, data)
-    t_offs, t_vals = tdense.dense_candidates(pat, data, device="cpu")
+    t_offs, t_vals = tdense.dense_candidates(carry_over(pat), data,
+                                             device="cpu")
     assert t_offs.tolist() == j_offs.tolist()
     assert t_vals.tolist() == j_vals.tolist()
 
@@ -266,7 +271,8 @@ def test_dense_search_equals_interpret(name):
     pat, data = dict(CORPORA)[name]()
     want = jdense.dense_search(pat, data, MatchSemantics.ALL,
                                interpret=True)
-    got = tdense.dense_search(pat, data, MatchSemantics.ALL, device="cpu")
+    got = tdense.dense_search(carry_over(pat), data,
+                              carry_over(MatchSemantics.ALL), device="cpu")
     assert _results(got) == _results(want) and got
 
 
@@ -293,10 +299,12 @@ def test_dense_candidates_fuzz_equal(rng, width):
         pat = compile_pattern(kw, ord("*") if use_wc else 0, dtype=dtype)
         arr = data.astype(dtype)
         j_offs, j_vals = jdense.dense_candidates(pat, arr)
-        t_offs, t_vals = tdense.dense_candidates(pat, arr, device="cpu")
+        t_offs, t_vals = tdense.dense_candidates(carry_over(pat), arr,
+                                                 device="cpu")
         assert t_offs.tolist() == j_offs.tolist(), f"kw={kw} n={n}"
         assert t_vals.tolist() == j_vals.tolist(), f"kw={kw} n={n}"
-        assert (_results(tdense.dense_search(pat, arr, device="cpu"))
+        assert (_results(tdense.dense_search(carry_over(pat), arr,
+                                             device="cpu"))
                 == _results(jdense.dense_search(pat, arr)))
 
 
@@ -311,8 +319,8 @@ def test_two_phase_candidates_small_tiles_equal(dtype):
     for pos in (0, te - 3, 500, 1000 - 6):
         data[pos : pos + 6] = kw
     j_offs, j_vals = jdense.two_phase_candidates(pat, data, tile_elems=te)
-    t_offs, t_vals = tdense.two_phase_candidates(pat, data, tile_elems=te,
-                                                 device="cpu")
+    t_offs, t_vals = tdense.two_phase_candidates(carry_over(pat), data,
+                                                 tile_elems=te, device="cpu")
     assert t_offs.tolist() == j_offs.tolist()
     assert t_vals.tolist() == j_vals.tolist()
     assert {0, te - 3, 500, 994} <= set(t_offs.tolist())
@@ -336,15 +344,15 @@ def test_upload_elements_read_only(tmp_path, dtype):
 
 
 def test_dense_search_edges():
-    pat = compile_pattern("catch")
+    pat = carry_over(compile_pattern("catch"))
     assert tdense.dense_search(pat, np.zeros(3, dtype=np.uint8),
                                device="cpu") == []
     offs, vals = tdense.dense_candidates(pat, np.zeros(4, dtype=np.uint8),
                                          device="cpu")
     assert offs.shape == (0,) and vals.shape == (0, 2)
     with pytest.raises(ValueError, match=">= 2"):
-        tdense.dense_search(compile_pattern("a"), np.zeros(9, np.uint8),
-                            device="cpu")
+        tdense.dense_search(carry_over(compile_pattern("a")),
+                            np.zeros(9, np.uint8), device="cpu")
     with pytest.raises(RuntimeError):
         tdense.dense_search(pat, np.zeros(9, np.uint8), device="meta")
     if not torch.cuda.is_available():

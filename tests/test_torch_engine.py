@@ -26,9 +26,10 @@ from monkey_moore_tpu.config import (
     Endianness,
     MatchSemantics,
     SearchConfig,
-    SearchStep,
 )
 from monkey_moore_tpu.engine import SearchEngine as JaxEngine
+from monkey_moore_tpu_torch import carry_over
+from monkey_moore_tpu_torch import config as tconfig
 from monkey_moore_tpu_torch.engine import SearchEngine
 from test_engine import (
     FILE_DATA_8,
@@ -55,7 +56,7 @@ def assert_same_as_jax(cfg):
     """Run both engines on ``cfg``; returns the port's results."""
     jax_engine = JaxEngine(cfg)
     j_res, j_prog = _run(jax_engine)
-    port = SearchEngine(cfg, device="cpu")
+    port = SearchEngine(carry_over(cfg), device="cpu")
     t_res, t_prog = _run(port)
     assert [r.offset for r in t_res] == [r.offset for r in j_res]
     assert [r.values_map for r in t_res] == [r.values_map for r in j_res]
@@ -108,7 +109,7 @@ def test_ramp_overflow_fallback(tmp_path, semantics):
     )
     res = assert_same_as_jax(cfg)
     assert len(res) > 1000
-    assert SearchEngine(cfg, device="cpu").run() == res
+    assert SearchEngine(carry_over(cfg), device="cpu").run() == res
 
 
 @pytest.mark.parametrize("width", [1, 2])
@@ -210,10 +211,10 @@ def test_abort_mid_pipeline(tmp_path):
     flag = threading.Event()
 
     def saboteur(pct, step):
-        if step is SearchStep.SEARCHING and pct >= 40:
+        if step is tconfig.SearchStep.SEARCHING and pct >= 40:
             flag.set()
 
-    cfg = SearchConfig(
+    cfg = tconfig.SearchConfig(
         file_path=write_file(tmp_path, np.zeros(200_000, dtype=np.uint8)),
         keyword="never", device_chunk_bytes=16_384,
         host_latency_threshold_bytes=0, pipeline_depth=3,
@@ -223,7 +224,7 @@ def test_abort_mid_pipeline(tmp_path):
 
 
 def test_unported_routes_raise(tmp_path):
-    cfg = SearchConfig(file_path=write_file(tmp_path, FILE_DATA_8),
+    cfg = tconfig.SearchConfig(file_path=write_file(tmp_path, FILE_DATA_8),
                        keyword="text", host_latency_threshold_bytes=0)
     with pytest.raises(NotImplementedError):
         SearchEngine(cfg, device="cpu").run(distributed=True)
@@ -237,8 +238,8 @@ def test_unported_routes_raise(tmp_path):
 def test_device_trace_writes_a_trace(tmp_path, monkeypatch):
     trace_dir = tmp_path / "trace"
     monkeypatch.setenv("MMTPU_TRACE_DIR", str(trace_dir))
-    cfg = SearchConfig(file_path=write_file(tmp_path, FILE_DATA_8),
-                       keyword="text", host_latency_threshold_bytes=0)
+    cfg = tconfig.SearchConfig(file_path=write_file(tmp_path, FILE_DATA_8),
+                               keyword="text", host_latency_threshold_bytes=0)
     res = SearchEngine(cfg, device="cpu").run()
     assert [r.offset for r in res] == [0, 9, 27, 50, 60]
     assert len(list(trace_dir.glob("trace_*.json"))) == 1
@@ -269,26 +270,43 @@ def test_default_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        SearchEngine(SearchConfig(keyword="text"))
+        SearchEngine(tconfig.SearchConfig(keyword="text"))
 
 
 _NO_JAX = """
-import sys
-from monkey_moore_tpu.config import SearchConfig
+import os, sys
+import numpy as np
+from monkey_moore_tpu_torch.config import SearchConfig
 from monkey_moore_tpu_torch.engine import SearchEngine
 from monkey_moore_tpu_torch.multi import MultiSearcher
+from monkey_moore_tpu_torch.dense import dense_search
+from monkey_moore_tpu_torch.pattern import compile_pattern
+from monkey_moore_tpu_torch import bench, perf_probe
 cfg = SearchConfig(file_path=sys.argv[1], keyword="text",
                    device_chunk_bytes=64, host_latency_threshold_bytes=0)
 offsets = [r.offset for r in SearchEngine(cfg, device="cpu").run()]
 assert offsets == [0, 9, 27, 50, 60], offsets
 batch = MultiSearcher(sys.argv[1], device="cpu").search(["text", "none"])
 assert [r.offset for r in batch[0]] == offsets, batch
+data = np.fromfile(sys.argv[1], dtype=np.uint8)
+found = dense_search(compile_pattern("text"), data, device="cpu")
+assert [o for o, _ in found] == offsets, found
+os.environ.update(MMTPU_BENCH_ITERS="3", MMTPU_BENCH_WARMUP="1")
+assert bench.main(["--device", "cpu", "--mb", "4"]) == 0
+assert perf_probe.main(["--device", "cpu", "--mb", "4", "--iters", "1",
+                        "--stage", "sol,fused"]) == 0
 assert "jax" not in sys.modules, "the port loaded jax"
+loaded = sorted(m for m in sys.modules if m == "monkey_moore_tpu"
+                or m.startswith("monkey_moore_tpu."))
+assert not loaded, f"the port loaded the JAX package: {loaded}"
 print("no-jax ok")
 """
 
 
 def test_port_never_imports_jax(tmp_path):
+    """In a fresh process: the engine, a keyword batch, ``dense_search``, a
+    CPU bench and a CPU perf_probe run load neither jax nor any module of
+    the JAX package."""
     path = write_file(tmp_path, FILE_DATA_8)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -297,6 +315,47 @@ def test_port_never_imports_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert "no-jax ok" in proc.stdout
+
+
+def _foreign_imports(path: Path):
+    """(line, module) of every import of jax or of the JAX package in the
+    Python file *path*."""
+    import ast
+
+    def foreign(name):
+        return any(name == root or name.startswith(root + ".")
+                   for root in ("jax", "jaxlib", "monkey_moore_tpu"))
+
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names
+                      if foreign(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if foreign(node.module or ""):
+                found.append((node.lineno, node.module))
+    return found
+
+
+PORT_FILES = sorted((ROOT / "monkey_moore_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_files_import_no_jax_package(path):
+    assert _foreign_imports(path) == []
+
+
+def test_foreign_import_check_finds_them(tmp_path):
+    path = tmp_path / "bad.py"
+    path.write_text("import jax.numpy as jnp\nimport os\n"
+                    "from monkey_moore_tpu.config import SearchConfig\n"
+                    "from monkey_moore_tpu_torch import dense\n"
+                    "def f():\n    import monkey_moore_tpu\n")
+    assert _foreign_imports(path) == [
+        (1, "jax.numpy"), (3, "monkey_moore_tpu.config"),
+        (6, "monkey_moore_tpu")]
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

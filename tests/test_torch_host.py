@@ -12,6 +12,7 @@ import pytest
 from monkey_moore_tpu import dense as jdense
 from monkey_moore_tpu.ops import scan_jnp, scan_pallas
 from monkey_moore_tpu.pattern import compile_pattern
+from monkey_moore_tpu_torch import carry_over
 from monkey_moore_tpu_torch.ops import host
 from common import HIRAGANA_SEQ
 from test_scan import CORPORA
@@ -40,24 +41,25 @@ def test_prefilter_selection_equal(name, make, env, monkeypatch):
     else:
         monkeypatch.setenv("MMTPU_PREFILTER_CHECKS", env)
     pat = make()
-    assert host.prefilter_cap(pat.dtype) == scan_jnp.prefilter_cap(pat.dtype)
-    assert (host.prefilter_expected(pat).tolist()
+    tpat = carry_over(pat)
+    assert host.prefilter_cap(tpat.dtype) == scan_jnp.prefilter_cap(pat.dtype)
+    assert (host.prefilter_expected(tpat).tolist()
             == scan_jnp.prefilter_expected(pat).tolist())
-    assert (host.prefilter_check_indices(pat).tolist()
+    assert (host.prefilter_check_indices(tpat).tolist()
             == scan_jnp.prefilter_check_indices(pat).tolist())
-    pairs, exp = host.prefilter_checks(pat)
+    pairs, exp = host.prefilter_checks(tpat)
     ref_pairs, ref_exp = scan_jnp.prefilter_checks(pat)
     assert pairs == ref_pairs
     assert exp.dtype == ref_exp.dtype and exp.tolist() == ref_exp.tolist()
-    assert host._prefilter_sel(pat)[0] == jdense._prefilter_sel(pat)[0]
-    assert host._prefilter_sel(pat)[2] == jdense._prefilter_sel(pat)[2]
+    assert host._prefilter_sel(tpat)[0] == jdense._prefilter_sel(pat)[0]
+    assert host._prefilter_sel(tpat)[2] == jdense._prefilter_sel(pat)[2]
     for k_per_word in (1, 2, 4):
         assert (host.wordcmp_run(pairs, k_per_word)
                 == scan_pallas.wordcmp_run(pairs, k_per_word))
 
 
 def test_wordcmp_switch_equal(monkeypatch):
-    pairs, _ = host.prefilter_checks(compile_pattern("abcde"))
+    pairs, _ = host.prefilter_checks(carry_over(compile_pattern("abcde")))
     monkeypatch.setenv("MMTPU_WORDCMP", "0")
     assert host.wordcmp_run(pairs, 4) is None
     assert scan_pallas.wordcmp_run(pairs, 4) is None
@@ -81,11 +83,11 @@ def test_auto_k_cap_and_fallback_bytes_equal(dtype):
             for tile_elems in (8, 8192, 32768, 262144):
                 for valid in (5, 10_000, 2**27, 2**29 + 3, 2**33):
                     assert host.auto_k_cap(
-                        pat, valid, tile_elems, n_pairs
+                        carry_over(pat), valid, tile_elems, n_pairs
                     ) == jdense.auto_k_cap(pat, valid, tile_elems, n_pairs)
                 for n_hot in (0, 1, 3, 64, 1000):
                     assert host._gather_fallback_bytes(
-                        pat, n_hot, tile_elems
+                        carry_over(pat), n_hot, tile_elems
                     ) == jdense._gather_fallback_bytes(pat, n_hot, tile_elems)
 
 
@@ -147,7 +149,7 @@ def test_multi_tables_equal(name, kws, wc, dtype, env, monkeypatch):
     else:
         monkeypatch.setenv("MMTPU_PREFILTER_CHECKS", env)
     pats = _batch(kws, wc, dtype)
-    got = host.canonical_check_tables(pats)
+    got = host.canonical_check_tables(carry_over(pats))
     want = scan_jnp.canonical_check_tables(pats)
     assert got[0] == want[0]
     for g_list, w_list in zip(got[1:], want[1:]):
@@ -177,7 +179,8 @@ def test_extract_hot_tiles_equal(dtype, grid_offset):
             data[pos : pos + pat.length] = kv
         counts = rng.integers(0, 2, 10).astype(np.int32)
         counts[[0, 4, 9]] = 1
-        got = host.extract_hot_tiles(pat, data, counts, te, grid_offset)
+        got = host.extract_hot_tiles(carry_over(pat), data, counts, te,
+                                     grid_offset)
         want = jdense.extract_hot_tiles(pat, data, counts, te, grid_offset)
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and g.tolist() == w.tolist()

@@ -29,6 +29,7 @@ from monkey_moore_tpu.multi import MultiSearcher as JaxMultiSearcher
 from monkey_moore_tpu.ops import scan_jnp, scan_pallas
 from monkey_moore_tpu.ops.scan_pallas import LANES, swar_host_view
 from monkey_moore_tpu.pattern import compile_pattern
+from monkey_moore_tpu_torch import carry_over
 from monkey_moore_tpu_torch import dense as tdense
 from monkey_moore_tpu_torch import multi as tmulti
 from monkey_moore_tpu_torch.engine import SearchEngine
@@ -107,7 +108,7 @@ def test_counts_equal_pallas_multi_interpret(kws, dtype, tail):
     assert want.shape == (len(pats), n_tiles)
 
     words = torch.from_numpy(swar_host_view(arr).copy())
-    table, last_starts = scan_cuda.multi_operand(pats, n, "cpu")
+    table, last_starts = scan_cuda.multi_operand(carry_over(pats), n, "cpu")
     got = scan_cuda.tile_counts_multi(words, table, last_starts, width=width,
                                       tile_elems=TE)
     assert got.dtype == torch.int32 and got.tolist() == want.tolist()
@@ -129,7 +130,7 @@ def test_counts_equal_pallas_multi_interpret(kws, dtype, tail):
 
 
 def test_multi_operand_table_and_memo():
-    pats = _pats(["abcde", "?bcd", "abcdefghijkl"], np.uint8)
+    pats = carry_over(_pats(["abcde", "?bcd", "abcdefghijkl"], np.uint8))
     table, last = scan_cuda.multi_operand(pats, 1000, "cpu")
     assert table.dtype == torch.int32 and table.shape[:2] == (3, 4)
     assert last.dtype == torch.int64
@@ -145,7 +146,7 @@ def test_multi_operand_table_and_memo():
 
 
 def test_tile_counts_multi_rejects_bad_operands():
-    pats = _pats(["abcde", "zyxwv"], np.uint8)
+    pats = carry_over(_pats(["abcde", "zyxwv"], np.uint8))
     table, last = scan_cuda.multi_operand(pats, 100, "cpu")
     words = torch.zeros(3 * 64 // 4, dtype=torch.int32)  # 3 tiles of 64
     args = dict(width=1, tile_elems=64)
@@ -190,7 +191,7 @@ def _fused_both(monkeypatch, pats, arr, n, **kw):
         interpret=True, **kw,
     )
     got = tdense.fused_count_extract_multi(
-        pats, torch.from_numpy(swar_host_view(arr).copy()), n,
+        carry_over(pats), torch.from_numpy(swar_host_view(arr).copy()), n,
         tile_elems=TE, **kw,
     )
     assert want is not None and got is not None
@@ -227,7 +228,7 @@ def test_fused_multi_step_equal(monkeypatch):
     pats = _pats(BATCH_8, np.uint8)
     n = 8 * TE + 124
     arr = _planted_batch(pats, n, TE, seed=42)
-    assert tdense.fused_multi_eligible(pats, TE)
+    assert tdense.fused_multi_eligible(carry_over(pats), TE)
     got = _fused_both(monkeypatch, pats, arr, n)
     for plants, (offs, _, info) in zip(_plants(pats, n, TE), got):
         assert set(plants) <= set(offs.tolist())
@@ -262,10 +263,11 @@ def test_fused_multi_eligible_equal(env, monkeypatch):
         (_pats(["abcde", long_kw], np.uint8), 2 * TE),
     ]
     for pats, te in cases:
-        assert tdense.fused_multi_eligible(pats, te) == (
+        assert tdense.fused_multi_eligible(carry_over(pats), te) == (
             jdense.fused_multi_eligible(pats, te, interpret=True)
         )
-    assert [tdense.fused_multi_eligible(p, t) for p, t in cases] == [
+    assert [tdense.fused_multi_eligible(carry_over(p), t)
+            for p, t in cases] == [
         True, False, True, False, env is None]
 
 
@@ -352,7 +354,7 @@ def test_multi_searcher_equal(tmp_path, monkeypatch, name, make, kwargs,
     fused_calls = _record(monkeypatch, tmulti, "fused_count_extract_multi")
     want = JaxMultiSearcher(path, **kwargs).search(
         specs, generate_previews=previews)
-    got = MultiSearcher(path, device="cpu", **kwargs).search(
+    got = MultiSearcher(path, device="cpu", **carry_over(kwargs)).search(
         specs, generate_previews=previews)
     assert _as_lists(got) == _as_lists(want)
     assert any(group for group in got)
@@ -368,9 +370,9 @@ def test_multi_searcher_matches_engine(tmp_path):
     got = MultiSearcher(path, device="cpu").search(specs)
     for spec, group in zip(specs, got):
         kw = spec if isinstance(spec, dict) else {"keyword": spec}
-        single = SearchEngine(SearchConfig(file_path=path, **kw,
-                                           host_latency_threshold_bytes=0),
-                              device="cpu").run()
+        cfg = SearchConfig(file_path=path, **kw,
+                           host_latency_threshold_bytes=0)
+        single = SearchEngine(carry_over(cfg), device="cpu").run()
         assert [(r.offset, r.values_map) for r in group] == [
             (r.offset, r.values_map) for r in single]
     assert 40_000 - 5 in [r.offset for r in got[0]]
@@ -410,9 +412,9 @@ def test_copied_methods_equal(tmp_path, spec):
     for kwargs in ({}, dict(element_width=2, endianness=Endianness.BIG,
                             preferred_search_block_size=4096,
                             semantics=MatchSemantics.ALL)):
-        port = MultiSearcher(path, device="cpu", **kwargs)
+        port = MultiSearcher(path, device="cpu", **carry_over(kwargs))
         ref = JaxMultiSearcher(path, **kwargs)
-        assert port._config(spec) == ref._config(spec)
+        assert port._config(spec) == carry_over(ref._config(spec))
         for align, e0, count in ((0, 0, 100), (1, 7, 50), (0, 29_990, 40)):
             got = port._decode_grid(data, align, e0, count)
             want = ref._decode_grid(data, align, e0, count)

@@ -20,6 +20,7 @@ from monkey_moore_tpu.ops.scan_pallas import (
     tile_counts_pallas,
 )
 from monkey_moore_tpu.pattern import compile_pattern
+from monkey_moore_tpu_torch import carry_over
 from monkey_moore_tpu_torch.ops import scan_cuda, scan_torch
 from monkey_moore_tpu_torch.ops.host import prefilter_checks, wordcmp_run
 
@@ -50,7 +51,7 @@ def test_counts_equal_pallas_swar_interpret(kw, width, n_tiles):
     per grid step), 3 do not; the valid limit is ragged."""
     dtype = np.uint8 if width == 1 else np.uint16
     pat = compile_pattern(kw, "*" if "*" in kw else 0, dtype=dtype)
-    pairs, _ = prefilter_checks(pat)
+    pairs, _ = prefilter_checks(carry_over(pat))
     assert (wordcmp_run(pairs, 4 // width) is not None) == (
         (kw, width) in WORD_COMPARE
     )
@@ -69,7 +70,7 @@ def test_counts_equal_pallas_swar_interpret(kw, width, n_tiles):
     )
     got = scan_cuda.tile_counts(
         torch.from_numpy(arr.view("<i4").copy()),
-        scan_cuda.prefilter_operand(pat, "cpu"),
+        scan_cuda.prefilter_operand(carry_over(pat), "cpu"),
         width=width, tile_elems=tile_elems, length=pat.length, valid_count=n,
     )
     assert got.dtype == torch.int32
@@ -88,7 +89,7 @@ def test_count_body_equals_xla_small_tiles(tile_elems):
         n = n_tiles * tile_elems - 3
         arr = np.zeros((n_tiles + 1) * tile_elems, dtype=np.uint8)
         arr[:n] = _planted(rng, pat, n, [0, 2 * tile_elems - 2, n - 5])
-        pairs, exp = prefilter_checks(pat)
+        pairs, exp = prefilter_checks(carry_over(pat))
         want = scan_jnp.tile_counts_xla(
             jnp.asarray(arr), jnp.int32(n), jnp.asarray(exp), pairs=pairs,
             length=pat.length, tile_elems=tile_elems,
@@ -189,7 +190,8 @@ def test_exact_phase2_equal(kw, wc, dtype, p_cap):
         expected=exp_j, signed_compare=pat.signed_compare, recovery=rec_j,
         p_cap=p_cap,
     )
-    _, _, exp_t, rec_t = scan_torch.pattern_device_args(pat, "cpu")
+    _, _, exp_t, rec_t = scan_torch.pattern_device_args(carry_over(pat),
+                                                       "cpu")
     got = scan_torch.exact_phase2(
         torch.from_numpy(slots), torch.from_numpy(hot),
         torch.tensor(nhot, dtype=torch.int32), n // tile_elems,
@@ -208,14 +210,14 @@ def test_exact_phase2_equal(kw, wc, dtype, p_cap):
 def test_pattern_device_args_equal():
     for kw, wc, dtype in EXACT + [("a*b*cD", "*", np.uint8)]:
         pat = compile_pattern(kw, wc, dtype=dtype)
-        got = scan_torch.pattern_device_args(pat, "cpu")
+        got = scan_torch.pattern_device_args(carry_over(pat), "cpu")
         want = scan_jnp.pattern_device_args(pat)
         for g, w in zip(got, want):
             assert g.tolist() == np.asarray(w).astype(np.int64).tolist()
 
 
 def test_wrappers_reject_bad_operands():
-    pat = compile_pattern("abcde")
+    pat = carry_over(compile_pattern("abcde"))
     checks = scan_cuda.prefilter_operand(pat, "cpu")
     words = torch.zeros(3 * 64 // 4, dtype=torch.int32)  # 3 tiles of 64
     args = dict(width=1, tile_elems=64, length=5, valid_count=100)
