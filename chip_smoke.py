@@ -11,7 +11,11 @@
    main path's shapes and at a tiny tile, exactly (all values are
    integers), and times both (the keyword-batch kernel at K = 8; the
    element counts kernel D beside the word counts kernel A on the same
-   bytes, the block gather E beside the gather B on the same ids);
+   bytes; the gathers B and E, one bulk-copy kernel, on the same ids beside
+   ``index_select`` of the tile view, at k_cap 32 and 128 with the main
+   path's ids and with distinct ids, and at the bench path's 8 KiB tiles
+   and k_cap 32, by back-to-back launches with each call's host enqueue
+   time);
 4. writes a 1 GiB file of seeded random bytes with planted keywords and
    searches it through ``monkey_moore_tpu_torch.engine.SearchEngine`` with
    default settings (the resident device route): an 8-bit keyword, an
@@ -47,8 +51,14 @@
    bandwidth may read over 105%.
 
 Phase 3 also holds kernel I against its plain version and ``torch.sum`` on
-the 512 MiB chunk buffer.  Each path runs with the launch counts set to 0
-just before it and read just after.  The last line is ``{"ok": true,
+the 512 MiB chunk buffer; phase 8 times it on the first 4 GiB as well
+(kernel J's shape).  Kernels that take well under a millisecond (the
+gathers, and kernel I beside ``torch.sum``) are timed by
+``bench.back_to_back_ms``: many launches between one pair of CUDA events,
+enqueued while a spin kernel holds the stream.  Each path runs with the
+launch counts set to 0 just before it and read just after, and every
+gather launch on a path must have 16-byte aligned pointers and tile size
+(the bulk route).  The last line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's ``nvidia-smi`` name
 and power limit, and before that a JSON object with each kernel's launches
 on its paths, its largest difference from the plain version, its time, its
@@ -132,6 +142,20 @@ def bound(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def path_launches(scan_cuda, phase: str) -> dict:
+    """The launch counts since the last reset; fails unless every gather
+    launch of the path had 16-byte aligned pointers and tile size, so that
+    it moved every slot inside its source by bulk copy."""
+    launches = dict(scan_cuda.launch_counts)
+    aligned = dict(scan_cuda.aligned_launch_counts)
+    check(all(aligned[k] == launches[k] for k in aligned),
+          f"{phase}: gathers off the bulk route: {aligned} aligned of "
+          f"{launches}")
+    print(f"{phase} gathers on the bulk route (16-byte aligned): {aligned}",
+          flush=True)
+    return launches
 
 
 def random_words(torch, gen, n_bytes: int):
@@ -227,43 +251,50 @@ def kernel_phase(torch):
           f"over {CHUNK // MIB} MiB and te=8): A {ms['A']:.4f} ms vs "
           f"{ms['A plain']:.4f} ms plain, D {ms['D']:.4f} ms vs "
           f"{ms['D plain']:.4f} ms plain on the same u8 buffer; B == E == "
-          f"plain (k_cap 1/32/128): B {ms['B']:.4f} ms vs {ms['B plain']:.4f}"
-          f" ms plain, E {ms['E']:.4f} ms vs {ms['E plain']:.4f} ms plain at "
-          f"k_cap=32 (index_select of the tile view {ms['B library']:.4f} "
-          f"ms); I == plain == torch.sum on the {CHUNK // MIB} MiB buffer: "
-          f"I {ms['I chunk']:.4f} ms vs {ms['I chunk plain']:.4f} ms plain, "
-          f"torch.sum {ms['I chunk library']:.4f} ms", flush=True)
+          f"plain == index_select (k_cap 1/32/128): B {ms['B']:.4f} ms vs "
+          f"{ms['B plain']:.4f} ms plain, E {ms['E']:.4f} ms vs "
+          f"{ms['E plain']:.4f} ms plain at k_cap=32, main-path ids "
+          f"(index_select of the tile view {ms['B library']:.4f} ms); I == "
+          f"plain == torch.sum on the {CHUNK // MIB} MiB buffer: I "
+          f"{ms['I chunk']:.4f} ms (host {ms['I chunk host']:.4f}) vs "
+          f"{ms['I chunk plain']:.4f} ms plain, torch.sum "
+          f"{ms['I chunk library']:.4f} ms (host "
+          f"{ms['I chunk library host']:.4f})", flush=True)
     err_c, c_ms, c_plain_ms, work["C"] = multi_kernel_phase(torch, gen)
     src = "monkey_moore_tpu_torch/csrc/"
     tpu = "monkey_moore_tpu/ops/scan_pallas.py:"
 
-    def row(name, source, replaces, key, max_err, kms, plain, library):
+    def row(name, source, replaces, key, max_err, kms, plain, library,
+            **extra):
         bound_ms, bound_by = work[key]
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "max_abs_err": max_err, "ms": kms,
                 "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library}
+                "library_ms": library, **extra}
 
     return [
         row("tile_counts", "tile_counts.cu", tpu + "612", "A", err["A"],
             ms["A"], ms["A plain"], None),
         row("gather_tiles", "gather_tiles.cu", tpu + "245", "B", err["B"],
-            ms["B"], ms["B plain"], ms["B library"]),
+            ms["B"], ms["B plain"], ms["B library"],
+            regimes=ms["gather regimes"]),
         row("tile_counts_multi", "tile_counts_multi.cu", tpu + "838", "C",
             err_c, c_ms, c_plain_ms, None),
         row("tile_counts_elems", "tile_counts_elems.cu", tpu + "373", "D",
             err["D"], ms["D"], ms["D plain"], None),
-        row("gather_tiles_block", "gather_tiles_block.cu", tpu + "315", "E",
-            err["E"], ms["E"], ms["E plain"], ms["B library"]),
+        row("gather_tiles_block", "gather_tiles.cu", tpu + "315", "E",
+            err["E"], ms["E"], ms["E plain"], ms["B library"],
+            regimes=ms["gather regimes"]),
     ], err["I"]
 
 
 def load_checks(torch, scan_cuda, words, err, ms):
     """Phase 3, kernel I on the 512 MiB chunk buffer: its per-tile sums
     (2 MiB tiles, the TPU load kernel's block) and total against its plain
-    version, and the total against ``torch.sum``, exactly; CUDA-event
-    medians of all three."""
-    from monkey_moore_tpu_torch.bench import LOAD_TILE_WORDS
+    version, and the total against ``torch.sum``, exactly; I and
+    ``torch.sum`` timed by back-to-back launches, the plain version by
+    CUDA-event medians."""
+    from monkey_moore_tpu_torch.bench import LOAD_TILE_WORDS, back_to_back_ms
 
     n_tiles = words.numel() // LOAD_TILE_WORDS
     body = words[: n_tiles * LOAD_TILE_WORDS]
@@ -273,21 +304,37 @@ def load_checks(torch, scan_cuda, words, err, ms):
     err["I"] = max(err["I"], int((sums.long() - p_sums.long()).abs().max()),
                    abs(int(total) - int(p_total)),
                    abs(int(total) - int(library)))
-    ms["I chunk"] = time_ms(
-        torch, lambda: scan_cuda.load_sum(words, LOAD_TILE_WORDS), 20)
+    ms["I chunk"], ms["I chunk host"] = back_to_back_ms(
+        lambda: scan_cuda.load_sum(words, LOAD_TILE_WORDS), 100)
     ms["I chunk plain"] = time_ms(
         torch, lambda: scan_cuda.load_sum_plain(words, LOAD_TILE_WORDS), 5)
-    ms["I chunk library"] = time_ms(
-        torch, lambda: torch.sum(body, dtype=torch.int32), 20)
+    ms["I chunk library"], ms["I chunk library host"] = back_to_back_ms(
+        lambda: torch.sum(body, dtype=torch.int32), 100)
 
 
 def gather_checks(torch, scan_cuda, nonzero_capped, words, elems, counts,
                   width, te, err, ms, work):
     """Phase 3, the gathers: B on the word view and E on the element view
-    against their plain versions and each other, byte for byte, at k_cap
-    1, 32 and 128 with duplicate ids; times both at k_cap 32 (u8), beside
-    one ``index_select`` of the overlapping tile view (the library call
-    that computes the same gather), which must equal B."""
+    against their plain versions, each other and one ``index_select`` of
+    the overlapping tile view (the library call that computes the same
+    gather), byte for byte, at k_cap 1, 32 and 128 with duplicate ids.  On
+    the u8 buffer, times B, E and ``index_select`` by back-to-back launches
+    in two id regimes at k_cap 32 and 128: the main path's ids
+    (``nonzero_capped`` of kernel A's counts) and distinct ids spread over
+    the chunk; and at the bench path's 8 KiB tiles and k_cap 32 with four
+    hot tiles; each with its host enqueue time and its bound
+    (``gather_bench.bound_ms``).  The kernels line takes the main-path ids
+    at k_cap 32."""
+    from monkey_moore_tpu_torch.bench import back_to_back_ms
+    from monkey_moore_tpu_torch.gather_bench import (
+        LAUNCHES,
+        bound_ms,
+        regime_ids,
+    )
+
+    n_tiles = counts.numel()
+    # tile t and its halo tile are row t of the overlapping view
+    spans = words.view(torch.uint8).unfold(0, 2 * te * width, te * width)
     for k_cap in (1, 32, 128):
         hot = nonzero_capped(counts, k_cap)
         hot[k_cap // 2 :] = hot[0].clone()  # duplicate ids
@@ -304,28 +351,57 @@ def gather_checks(torch, scan_cuda, nonzero_capped, words, elems, counts,
                                       - e_plain.view(torch.uint8)
                                       .to(torch.int16)).abs().max()))
         check(torch.equal(e_bytes, b), "kernel E differs from kernel B")
-        if k_cap == 32 and width == 1:
-            ms["B"] = time_ms(torch, lambda: scan_cuda.gather_tiles(
-                words, hot, width=1, tile_elems=te), 50)
-            ms["E"] = time_ms(torch, lambda: scan_cuda.gather_tiles_block(
-                elems, hot, tile_elems=te), 50)
+        check(torch.equal(torch.index_select(spans, 0, hot), b),
+              "index_select of the tile view differs from kernel B")
+    if width != 1:
+        return
+    regimes = []
+    bench_te = 8 << 10  # the bench path's tiles (8 Ki u8 elements)
+    for kind, tile, k_cap in (("main", te, 32), ("main", te, 128),
+                              ("distinct", te, 32), ("distinct", te, 128),
+                              ("bench", bench_te, 32)):
+        tiles = words.numel() * 4 // tile - 1  # plus one halo tile
+        if kind == "main":
+            hot = nonzero_capped(counts, k_cap)
+        else:
+            hot = regime_ids("main" if kind == "bench" else kind, tiles,
+                             k_cap, "cuda")
+        view = (spans if tile == te else words.view(torch.uint8)
+                .unfold(0, 2 * tile, tile))
+        row = {"ids": kind, "tile_bytes": tile, "k_cap": k_cap,
+               "distinct_ids": len(set(hot.tolist())),
+               "bound_ms": bound_ms(hot, tiles, tile)}
+        for name, fn in (
+            ("B", lambda: scan_cuda.gather_tiles(
+                words, hot, width=1, tile_elems=tile)),
+            ("E", lambda: scan_cuda.gather_tiles_block(
+                elems, hot, tile_elems=tile)),
+            ("library", lambda: torch.index_select(view, 0, hot)),
+        ):
+            row[f"{name} ms"], row[f"{name} host ms"] = (
+                back_to_back_ms(fn, LAUNCHES))
+        regimes.append(row)
+        if kind == "main" and k_cap == 32:
+            ms["B"], ms["E"] = row["B ms"], row["E ms"]
+            ms["B library"] = row["library ms"]
+            work["B"] = work["E"] = (row["bound_ms"], "bytes")
             ms["B plain"] = time_ms(torch, lambda: scan_cuda
                                     .gather_tiles_plain(
-                                        words, hot, width=1, tile_elems=te),
-                                    10)
+                                        words, hot, width=1,
+                                        tile_elems=te), 10)
             ms["E plain"] = time_ms(torch, lambda: scan_cuda
                                     .gather_tiles_block_plain(
                                         elems, hot, tile_elems=te), 10)
-            # tile t and its halo tile are row t of the overlapping view
-            spans = words.view(torch.uint8).unfold(0, 2 * te, te)
-            check(torch.equal(torch.index_select(spans, 0, hot), b),
-                  "index_select of the tile view differs from kernel B")
-            ms["B library"] = time_ms(torch, lambda: torch.index_select(
-                spans, 0, hot), 50)
-            # each distinct tile read once, every slot written
-            ids = set(hot.tolist())
-            read = len(ids | {i + 1 for i in ids}) * te
-            work["B"] = work["E"] = bound(read + 2 * k_cap * te, 0)
+    ms["gather regimes"] = regimes
+    for row in regimes:
+        print(f"phase 3 gathers, {row['ids']} ids, {row['tile_bytes']}-byte "
+              f"tiles, k_cap {row['k_cap']} ({row['distinct_ids']} "
+              f"distinct): B {row['B ms']:.4f} ms (host "
+              f"{row['B host ms']:.4f}), E {row['E ms']:.4f} ms (host "
+              f"{row['E host ms']:.4f}), index_select "
+              f"{row['library ms']:.4f} ms (host "
+              f"{row['library host ms']:.4f}), bound {row['bound_ms']:.4f} "
+              f"ms; back to back, {LAUNCHES} launches", flush=True)
 
 
 #: the K = 8 batch of the keyword-batch kernel check: canonical plain
@@ -492,7 +568,7 @@ def slice_phase(torch, workdir: Path):
         check(not stats.host_routed and stats.fused_steps > 0,
               f"{name}: did not take the device route")
         device_results[name] = (results, stats, times)
-    launches = dict(scan_cuda.launch_counts)
+    launches = path_launches(scan_cuda, "phase 4")
 
     for name, (kwargs, planted) in searches.items():
         results, stats, times = device_results[name]
@@ -550,7 +626,7 @@ def batch_phase(torch, path: Path, batches):
         runs = [timed(lambda: ms.search(specs)) for _ in range(2)]
         check(runs[0][0] == runs[1][0], f"{name}: repeat differs")
         batch_results[name] = (ms, runs[0][0], [t for _, t in runs])
-    launches = dict(scan_cuda.launch_counts)
+    launches = path_launches(scan_cuda, "phase 5")
     check(launches["tile_counts_multi"] > 0 and launches["gather_tiles"] > 0,
           f"kernels not launched on the batch path: {launches}")
     check(launches["tile_counts"] == 0,
@@ -623,7 +699,7 @@ def memory_phase(torch, path: Path, searches):
         greedy = dense_search(pat, arr, MatchSemantics.GREEDY, device="cuda")
         t_search = time.perf_counter() - t0
         found[name] = (offs, vals, greedy, t_cand, t_search)
-    launches = dict(scan_cuda.launch_counts)
+    launches = path_launches(scan_cuda, "phase 6")
     check(launches["tile_counts_elems"] > 0,
           f"kernel D not launched on the in-memory path: {launches}")
     check(launches["tile_counts"] == 0,
@@ -675,7 +751,7 @@ def stream_phase(torch, path: Path, searches, resident):
         results = engine.run()
         torch.cuda.synchronize()
         runs[name] = (results, engine.last_stats, time.perf_counter() - t0)
-    launches = dict(scan_cuda.launch_counts)
+    launches = path_launches(scan_cuda, "phase 7")
     check(launches["tile_counts_elems"] > 0
           and launches["gather_tiles_block"] > 0,
           f"kernels D and E not launched on the streaming path: {launches}")
@@ -702,12 +778,16 @@ def bench_phase(torch, err_i: int):
     adjacent differences, checked on the host from the bytes there).  Then
     the bench's timed paths run and its record is printed on a line of its
     own.  Kernel I is then held against its plain version and ``torch.sum``
-    on the whole corpus and timed (after the launch counts are read).
-    Returns the path's launch counts and kernel I's row of the kernels
-    line; ``err_i`` is phase 3's largest difference of kernel I."""
+    on the whole corpus and timed (after the launch counts are read), and
+    timed again on the first 4 GiB, ``perf_probe``'s shape (kernel J): the
+    kernel and ``torch.sum`` by back-to-back launches, the plain version by
+    CUDA-event medians.  Returns the path's launch counts and kernel I's row
+    of the kernels line, with J's figures under ``"j_4gib"``; ``err_i`` is
+    phase 3's largest difference of kernel I."""
     import numpy as np
 
     from monkey_moore_tpu_torch import bench
+    from monkey_moore_tpu_torch.bench import back_to_back_ms
     from monkey_moore_tpu_torch.corpus import clear_corpus_cache
     from monkey_moore_tpu_torch.dense import fused_count_extract
     from monkey_moore_tpu_torch.ops import scan_cuda
@@ -751,7 +831,7 @@ def bench_phase(torch, err_i: int):
               f"bench: offset {off} does not hold the keyword: {got}")
     name = torch.cuda.get_device_name(device)
     record = bench.measure(words, n, device_name=name, **conf)
-    launches = dict(scan_cuda.launch_counts)
+    launches = path_launches(scan_cuda, "phase 8")
     check(launches["load_sum"] >= 1 and launches["tile_counts"] >= 1
           and launches["gather_tiles"] >= 1,
           f"kernels not launched on the bench path: {launches}")
@@ -771,19 +851,35 @@ def bench_phase(torch, err_i: int):
     err = max(err_i, int((sums.long() - p_sums.long()).abs().max()),
               abs(int(total) - int(p_total)), abs(int(total) - int(library)))
     check(err == 0, f"kernel I differs from its plain version by {err}")
-    i_ms = time_ms(torch, lambda: scan_cuda.load_sum(body, tw), 20)
-    i_plain = time_ms(torch, lambda: scan_cuda.load_sum_plain(body, tw), 3)
-    i_library = time_ms(torch, lambda: torch.sum(body, dtype=torch.int32), 20)
-    # read every word once, write the sums and the total; one add per word
-    bound_ms, bound_by = bound(n_load * bench.LOAD_TILE_BYTES + n_load * 4
-                               + 4, n_load * tw)
+
+    def load_times(words_in, reps):
+        """(kernel ms, plain ms, torch.sum ms, bound ms, bound by)"""
+        tiles = words_in.numel() // tw
+        # read every word once, write the sums and the total; one add per
+        # word
+        return (back_to_back_ms(lambda: scan_cuda.load_sum(words_in, tw),
+                                reps)[0],
+                time_ms(torch, lambda: scan_cuda.load_sum_plain(words_in, tw),
+                        3),
+                back_to_back_ms(lambda: torch.sum(words_in,
+                                                  dtype=torch.int32),
+                                reps)[0],
+                *bound(tiles * bench.LOAD_TILE_BYTES + tiles * 4 + 4,
+                       tiles * tw))
+
+    i_ms, i_plain, i_library, bound_ms, bound_by = load_times(body, 50)
+    j_words = min(n_load, (4 << 30) // bench.LOAD_TILE_BYTES) * tw
+    j = dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                 load_times(body[:j_words], 100)), bytes=j_words * 4)
     print(f"phase 8 bench: {n // MIB} MiB generated and planted in "
           f"{t_fill:.3f} s; plants at {plants} found among {len(found)} "
           f"offsets, each holding the keyword (hot tiles "
           f"{info.hot_tiles}); shares {shares}; I == plain == torch.sum on "
           f"{n_load} tiles: I {i_ms:.4f} ms vs {i_plain:.4f} ms plain, "
-          f"torch.sum {i_library:.4f} ms, bound {bound_ms:.4f} ms",
-          flush=True)
+          f"torch.sum {i_library:.4f} ms, bound {bound_ms:.4f} ms; on the "
+          f"first {j['bytes'] // MIB} MiB (J): {j['ms']:.4f} ms vs "
+          f"{j['plain_ms']:.4f} ms plain, torch.sum {j['library_ms']:.4f} "
+          f"ms, bound {j['bound_ms']:.4f} ms", flush=True)
     print(f"phase 8 launches on the bench path: {launches}", flush=True)
     del words, raw, body, sums, p_sums
     torch.cuda.empty_cache()
@@ -792,7 +888,7 @@ def bench_phase(torch, err_i: int):
         "source": "monkey_moore_tpu_torch/csrc/load_sum.cu",
         "replaces": "bench.py:241", "max_abs_err": err, "ms": i_ms,
         "plain_ms": i_plain, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": i_library,
+        "library_ms": i_library, "j_4gib": j,
     }
 
 

@@ -20,7 +20,8 @@ import threading
 from pathlib import Path
 from typing import List, Optional
 
-__all__ = ["NVCC_FLAGS", "find_nvcc", "build_library", "load_library"]
+__all__ = ["NVCC_FLAGS", "find_nvcc", "build_library", "compile_library",
+           "open_library", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -103,18 +104,25 @@ def build_library() -> Path:
     """Compile ``csrc/*.cu`` unless a library of the same sources exists;
     returns its path.  Raises RuntimeError with nvcc's stderr on failure."""
     lib_path = _BUILD / f"libmmtorch_{_source_hash()}.so"
-    if lib_path.exists():
-        return lib_path
+    if not lib_path.exists():
+        compile_library(_sources(), lib_path)
+    return lib_path
+
+
+def compile_library(sources: List[Path], lib_path: Path) -> Path:
+    """Compile *sources*, one ``nvcc`` each, all started together, and link
+    them into the shared library *lib_path*; returns it.  Raises
+    RuntimeError with nvcc's stderr on failure."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
-    _BUILD.mkdir(parents=True, exist_ok=True)
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     try:
         compiles = [
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-            for src, obj in zip(_sources(), objs)
+            for src, obj in zip(sources, objs)
         ]
         procs = [
             subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -149,16 +157,23 @@ def _raise_on_failure(cmd: List[str], returncode: int, stderr: str) -> None:
         )
 
 
+def open_library(path: Path) -> ctypes.CDLL:
+    """The library at *path*, with the signatures of the C entry points it
+    holds."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once per
     process."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = open_library(build_library())
         return _lib

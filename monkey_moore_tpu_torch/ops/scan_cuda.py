@@ -1,7 +1,8 @@
 """The fused device step's kernels — counterpart of the JAX package's
 ``ops/scan_pallas.py`` (the single-device part of it).
 
-Six kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
+Six wrappers over five kernels, hand-written in CUDA C++ for Hopper
+(``csrc/``):
 
 - :func:`tile_counts` (kernel A, ``csrc/tile_counts.cu``) replaces
   ``scan_pallas._tile_counts_swar_call``;
@@ -11,8 +12,9 @@ Six kernels, hand-written in CUDA C++ for Hopper (``csrc/``):
   replaces ``scan_pallas._tile_counts_swar_multi_call``;
 - :func:`tile_counts_elems` (kernel D, ``csrc/tile_counts_elems.cu``)
   replaces ``scan_pallas._tile_counts_call``;
-- :func:`gather_tiles_block` (kernel E, ``csrc/gather_tiles_block.cu``)
-  replaces ``scan_pallas._gather_tiles_call``;
+- :func:`gather_tiles_block` (kernel E) replaces
+  ``scan_pallas._gather_tiles_call``: the same bulk-copy kernel as B
+  (``csrc/gather_tiles.cu``) on an element buffer;
 - :func:`load_sum` (kernels I and J, ``csrc/load_sum.cu``) replaces the
   speed-of-light load kernel of ``bench.py`` and ``tools/perf_probe.py``
   (``load_kernel`` / ``load_call``).
@@ -21,7 +23,9 @@ Each wrapper checks its operands, allocates its output, and launches its
 kernel on the current stream for a CUDA tensor, or runs its plain PyTorch
 version (``*_plain``, same module) for a CPU tensor; any other device
 raises.  :data:`launch_counts` counts kernel launches, so a run can show
-that it went through the kernels.
+that it went through the kernels; :data:`aligned_launch_counts` counts the
+gathers' launches whose pointers and tile size are all 16-byte aligned,
+where every slot inside the source moves by bulk copy.
 
 :func:`tile_counts_gather` is the counterpart of ``tile_counts_gather_pallas``
 with ``_swar_counts_gather_call`` and ``_hot_slots_and_combo``: counts,
@@ -56,6 +60,7 @@ from .scan_torch import (
 
 __all__ = [
     "launch_counts",
+    "aligned_launch_counts",
     "reset_launch_counts",
     "prefilter_operand",
     "tile_counts",
@@ -81,10 +86,14 @@ launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0,
                  "tile_counts_elems": 0, "gather_tiles_block": 0,
                  "load_sum": 0}
 
+#: the gathers' launches with 16-byte aligned source, output and tile size
+aligned_launch_counts = {"gather_tiles": 0, "gather_tiles_block": 0}
+
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, aligned_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _kernel_device(t: torch.Tensor) -> bool:
@@ -215,22 +224,9 @@ def gather_tiles(
         return gather_tiles_plain(
             words, hot, width=width, tile_elems=tile_elems
         )
-    from ._build import load_library
-
-    lib = load_library()
-    k_cap = hot.shape[0]
-    out = torch.empty(
-        (k_cap, 2 * tile_bytes), dtype=torch.uint8, device=words.device
-    )
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mm_gather_tiles(
-            words.data_ptr(), words.numel() * words.element_size(),
-            hot.data_ptr(), k_cap, tile_bytes, out.data_ptr(), stream,
-        )
-    _raise_on(rc, "gather_tiles")
-    launch_counts["gather_tiles"] += 1
-    return out
+    out = torch.empty((hot.shape[0], 2 * tile_bytes), dtype=torch.uint8,
+                      device=words.device)
+    return _launch_gather("gather_tiles", words, hot, tile_bytes, out)
 
 
 def gather_tiles_plain(words, hot, *, width, tile_elems) -> torch.Tensor:
@@ -319,7 +315,7 @@ def gather_tiles_block(
 ) -> torch.Tensor:
     """Kernel E: slot ``i`` receives elements ``[hot[i] * tile_elems,
     (hot[i] + 2) * tile_elems)`` of ``elems`` — tile ``hot[i]`` and its
-    halo tile, one CUDA block per tile.  Returns ``(len(hot), 2 *
+    halo tile, by kernel B's bulk copy.  Returns ``(len(hot), 2 *
     tile_elems)`` in the element dtype; elements past the buffer end read
     as 0.  Kernel B's contract on an element buffer."""
     _check(elems.dtype in (torch.uint8, torch.uint16) and elems.dim() == 1
@@ -331,21 +327,28 @@ def gather_tiles_block(
     _check(tile_elems > 0, "tile_elems must be positive")
     if not _kernel_device(elems):
         return gather_tiles_block_plain(elems, hot, tile_elems=tile_elems)
+    out = torch.empty((hot.shape[0], 2 * tile_elems), dtype=elems.dtype,
+                      device=elems.device)
+    return _launch_gather("gather_tiles_block", elems, hot,
+                          tile_elems * elems.element_size(), out)
+
+
+def _launch_gather(name, src, hot, tile_bytes, out) -> torch.Tensor:
+    """Launches the gather kernel (``csrc/gather_tiles.cu``) through the
+    entry point of wrapper *name* (``mm_gather_tiles`` for B,
+    ``mm_gather_tiles_block`` for E) and counts the launch."""
     from ._build import load_library
 
-    lib = load_library()
-    k_cap = hot.shape[0]
-    width = elems.element_size()
-    out = torch.empty((k_cap, 2 * tile_elems), dtype=elems.dtype,
-                      device=elems.device)
-    with torch.cuda.device(elems.device):
+    entry = getattr(load_library(), "mm_" + name)
+    with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mm_gather_tiles_block(
-            elems.data_ptr(), elems.numel() * width, hot.data_ptr(), k_cap,
-            tile_elems * width, out.data_ptr(), stream,
-        )
-    _raise_on(rc, "gather_tiles_block")
-    launch_counts["gather_tiles_block"] += 1
+        rc = entry(src.data_ptr(), src.numel() * src.element_size(),
+                   hot.data_ptr(), hot.shape[0], tile_bytes, out.data_ptr(),
+                   stream)
+    _raise_on(rc, name)
+    launch_counts[name] += 1
+    if (src.data_ptr() | out.data_ptr() | tile_bytes) % 16 == 0:
+        aligned_launch_counts[name] += 1
     return out
 
 

@@ -10,7 +10,8 @@ points, on the CPU:
   ``tools/perf_probe.py``;
 - the bench's fused step finds the same offsets and values as the JAX
   package's ``dense.fused_count_extract`` on the same words;
-- without a card both entry points exit 1 with "no CUDA device".
+- ``gather_bench``'s sweep sources, id regimes and bounds;
+- without a card the entry points exit 1 with "no CUDA device".
 
 Inputs are made with numpy (and ``torch.Generator``) from fixed seeds.
 Tolerance: exact equality — every value is an integer.
@@ -33,7 +34,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from monkey_moore_tpu import dense as jdense
 from monkey_moore_tpu.pattern import compile_pattern as jcompile
-from monkey_moore_tpu_torch import bench, perf_probe
+from monkey_moore_tpu_torch import bench, gather_bench, perf_probe
 from monkey_moore_tpu_torch.dense import fused_count_extract
 from monkey_moore_tpu_torch.ops import scan_cuda
 from monkey_moore_tpu_torch.pattern import compile_pattern
@@ -254,7 +255,77 @@ def test_make_corpus_is_seeded_and_padded():
     assert int(a[: 1 << 18].min()) < 0 < int(a[: 1 << 18].max())
 
 
-@pytest.mark.parametrize("module", ["bench", "perf_probe"])
+def test_gather_bench_sweep_sources():
+    """Each sweep variant is the kernel source with only its constants
+    changed, and the source's own constants are one of them."""
+    text = gather_bench.SOURCE.read_text()
+    consts = tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                                 text).group(1))
+                   for name in gather_bench.CONSTANTS)
+    assert consts in gather_bench.SWEEP
+    for values in gather_bench.SWEEP:
+        got = gather_bench.variant_source(*values)
+        for name, value in zip(gather_bench.CONSTANTS, values):
+            assert f"constexpr int {name} = {value};" in got
+        assert len(got.splitlines()) == len(text.splitlines())
+    assert gather_bench.variant_source(*consts) == text
+
+
+def test_gather_bench_regimes_and_bounds():
+    """Main-path ids: the four hot tiles, then tile 0 in every idle slot;
+    distinct ids spread over the tiles.  The bound reads each distinct
+    tile and halo tile once and writes every slot."""
+    main = gather_bench.regime_ids("main", 100, 8, "cpu")
+    assert main.tolist() == [1, 33, 50, 99, 0, 0, 0, 0]
+    spread = gather_bench.regime_ids("distinct", 100, 8, "cpu")
+    assert spread.dtype == torch.int32 and len(set(spread.tolist())) == 8
+    assert spread.tolist()[0] == 0 and spread.tolist()[-1] == 99
+    # tiles {0, 1, 2, 33, 34, 50, 51, 99, 100}: 9 read, 16 written
+    assert gather_bench.bound_ms(main, 100, 1000) == pytest.approx(
+        25 * 1000 / 3.35e12 * 1e3)
+
+
+def test_gather_bench_builds_through_ops_build(tmp_path, monkeypatch):
+    """Every library ``gather_bench`` times is built by
+    ``ops._build.compile_library`` into its own file and opened by
+    ``open_library``: this checkout's kernel, the other checkout's gather
+    sources and one variant source per sweep entry."""
+    built = {}
+
+    def compile_library(sources, lib_path):
+        built[lib_path.name] = [Path(s) for s in sources]
+        return lib_path
+
+    monkeypatch.setattr(gather_bench, "compile_library", compile_library)
+    monkeypatch.setattr(gather_bench, "open_library", lambda path: path.name)
+    monkeypatch.setattr(gather_bench, "BUILD", tmp_path / "build")
+    other = tmp_path / "csrc"
+    other.mkdir()
+    for name in ("gather_tiles.cu", "gather_tiles_block.cu", "load_sum.cu"):
+        (other / name).write_text("// another checkout\n")
+    libs = gather_bench.build_all(str(other), sweep=True)
+    assert libs["this"] == "this.so" and libs["against"] == "against.so"
+    assert built["this.so"] == [gather_bench.SOURCE]
+    assert [p.name for p in built["against.so"]] == [
+        "gather_tiles.cu", "gather_tiles_block.cu"]
+    sweep = [tag for tag in libs if tag.startswith("sweep_")]
+    assert len(sweep) == len(gather_bench.SWEEP)
+    for tag in sweep:
+        (src,) = built[f"{tag}.so"]
+        values = tuple(int(v) for v in tag.split("_")[1:])
+        assert src.read_text() == gather_bench.variant_source(*values)
+
+
+def test_compile_library_needs_nvcc(tmp_path, monkeypatch):
+    from monkey_moore_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.compile_library([gather_bench.SOURCE], tmp_path / "x.so")
+    assert not (tmp_path / "x.so").exists()
+
+
+@pytest.mark.parametrize("module", ["bench", "perf_probe", "gather_bench"])
 def test_entry_points_need_a_card(module):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the run would start")

@@ -6,6 +6,9 @@ the card, run ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
 Tolerance: exact equality throughout — every value is an integer.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -76,6 +79,60 @@ def test_gather_tiles_kernel_equals_plain(cuda, k_cap, tile_elems, width):
     got = scan_cuda.gather_tiles(words.to(cuda), hot.to(cuda), width=width,
                                  tile_elems=tile_elems)
     assert torch.equal(got.cpu(), want)
+
+
+#: the gather kernel's stage: a piece of a slot's span per bulk copy
+STAGE_BYTES = int(re.search(
+    r"constexpr int kStageBytes = (\d+);",
+    (Path(scan_cuda.__file__).parents[1] / "csrc" / "gather_tiles.cu")
+    .read_text()).group(1))
+
+#: (tile bytes, element width): tiny, unaligned, u16, one stage exactly,
+#: one stage + 16 (a 32-byte last piece), the bench's and the main path's
+GATHER_SHAPES = [(8, 1), (1000, 1), (2000, 2), (STAGE_BYTES, 1),
+                 (STAGE_BYTES + 16, 1), (32 << 10, 1), (256 << 10, 1)]
+
+
+@pytest.mark.parametrize("offset", [0, 2])
+@pytest.mark.parametrize("k_cap", [1, 31, 128, 513])
+@pytest.mark.parametrize("tile_bytes,width", GATHER_SHAPES)
+def test_gather_kernel_b_e_plain_index_select(cuda, tile_bytes, width, k_cap,
+                                              offset):
+    """B and E (one bulk-copy kernel) against their plain versions, each
+    other and ``index_select`` of the zero-padded tile view: duplicate ids,
+    an id at the last tile (its halo reads zeros past the end), and at a
+    2-byte offset a source that is not 16-byte aligned (the edge copy)."""
+    rng = np.random.default_rng(tile_bytes + k_cap + offset)
+    te = tile_bytes // width
+    n_tiles = max(4, min(40, (16 << 20) // tile_bytes))
+    raw = rng.integers(0, 256, offset + (n_tiles + 1) * tile_bytes,
+                       dtype=np.uint8)
+    src = torch.from_numpy(raw).to(cuda)[offset:]
+    elems = src if width == 1 else src.view(torch.uint16)
+    hot = rng.integers(0, n_tiles + 1, k_cap).astype(np.int32)
+    hot[k_cap // 2 :] = hot[0]  # duplicate ids, as idle slots repeat
+    hot[-1] = n_tiles  # the halo tile of the last tile lies past the end
+    hot = torch.from_numpy(hot).to(cuda)
+    scan_cuda.reset_launch_counts()
+    b = scan_cuda.gather_tiles(elems, hot, width=width, tile_elems=te)
+    e = scan_cuda.gather_tiles_block(elems, hot, tile_elems=te)
+    torch.cuda.synchronize()
+    assert scan_cuda.launch_counts["gather_tiles"] == 1
+    assert scan_cuda.launch_counts["gather_tiles_block"] == 1
+    aligned = int(offset == 0 and tile_bytes % 16 == 0)
+    assert scan_cuda.aligned_launch_counts == {
+        "gather_tiles": aligned, "gather_tiles_block": aligned}
+    assert e.dtype == elems.dtype and e.shape == (k_cap, 2 * te)
+    assert torch.equal(b, scan_cuda.gather_tiles_plain(
+        elems, hot, width=width, tile_elems=te))
+    assert torch.equal(e, scan_cuda.gather_tiles_block_plain(
+        elems, hot, tile_elems=te))
+    assert torch.equal(e.view(torch.uint8), b)
+    padded = torch.cat([src, torch.zeros(tile_bytes, dtype=torch.uint8,
+                                         device=cuda)])
+    spans = padded.unfold(0, 2 * tile_bytes, tile_bytes)
+    assert torch.equal(torch.index_select(spans, 0, hot), b)
+    assert not b[-1, tile_bytes:].any()
 
 
 @pytest.mark.parametrize(

@@ -6,7 +6,10 @@ same u8/u16 element arrays made with numpy from a fixed seed:
   interpret mode (``tile_counts_pallas(mode="native")``) and against
   ``scan_jnp.tile_counts_xla``;
 - kernel E's plain version against the Pallas ``_gather_tiles_call`` in
-  interpret mode and against kernel B's plain version;
+  interpret mode and against kernel B's plain version; across the card
+  tests' gather shapes, B's and E's plain versions against a numpy slice
+  and, where the tile is whole 128-lane rows, against
+  ``_gather_tiles_dma_call`` and ``_gather_tiles_call`` in interpret mode;
 - the element-array fused step (``dense.fused_count_extract_start`` on
   element tensors, and the plain twin ``scan_torch.fused_body``) against
   ``_native_counts_gather_call`` (interpret) and
@@ -36,6 +39,7 @@ from monkey_moore_tpu.ops.scan_jnp import (
 from monkey_moore_tpu.ops.scan_pallas import (
     LANES,
     _gather_tiles_call,
+    _gather_tiles_dma_call,
     tile_counts_pallas,
 )
 from monkey_moore_tpu.pattern import compile_pattern
@@ -138,6 +142,68 @@ def test_gather_tiles_block_past_the_end_reads_zero():
         elems, torch.tensor([3, 4], dtype=torch.int32), tile_elems=8)
     assert got[0].tolist() == list(range(25, 41))
     assert got[1].tolist() == list(range(33, 41)) + [0] * 8
+
+
+#: (tile bytes, element width, k_cap): the card tests' shapes of the
+#: gather kernel (tiny, unaligned, u16, 8 KiB stage, stage + 16, the
+#: bench's and the main path's tiles) at the k_caps whose plain gathers
+#: stay small on the CPU
+GATHER_CASES = [
+    (tb, w, k) for tb, w, caps in (
+        (8, 1, (1, 31, 128, 513)), (1000, 1, (1, 31, 128, 513)),
+        (2000, 2, (1, 31, 128, 513)), (8192, 1, (1, 31, 128)),
+        (8208, 1, (1, 31, 128)), (32 << 10, 1, (1, 31)),
+        (256 << 10, 1, (1, 4)),
+    ) for k in caps
+]
+
+
+@pytest.mark.parametrize("offset", [0, 2])
+@pytest.mark.parametrize("tile_bytes,width,k_cap", GATHER_CASES)
+def test_gather_plain_b_equals_e_across_shapes(tile_bytes, width, k_cap,
+                                               offset):
+    """B's and E's plain versions (and their wrappers on CPU tensors) give
+    the same bytes as a numpy slice of the zero-padded source, at a source
+    offset that is not 16-byte aligned too: duplicate ids and an id at the
+    last tile, whose halo tile lies past the end.  Where the tile is whole
+    rows of 128 int32 lanes, the slice is also held to the Pallas gathers
+    in interpret mode (``_gather_tiles_dma_call`` on the padded source's
+    words, ``_gather_tiles_call`` on its elements)."""
+    rng = np.random.default_rng(tile_bytes + k_cap + offset)
+    te = tile_bytes // width
+    n_tiles = 5
+    raw = rng.integers(0, 256, offset + (n_tiles + 1) * tile_bytes,
+                       dtype=np.uint8)
+    hot = rng.integers(0, n_tiles + 1, k_cap).astype(np.int32)
+    hot[k_cap // 2 :] = hot[0]  # duplicate ids, as idle slots repeat
+    hot[-1] = n_tiles
+    padded = np.concatenate([raw[offset:], np.zeros(tile_bytes, np.uint8)])
+    want = np.stack([padded[h * tile_bytes : (h + 2) * tile_bytes]
+                     for h in hot])
+    if tile_bytes % (LANES * 4) == 0:
+        dma = np.asarray(_gather_tiles_dma_call(
+            jnp.asarray(padded.view(np.int32).reshape(-1, LANES)),
+            jnp.asarray(hot), k_cap=k_cap,
+            rows_per_tile=tile_bytes // (LANES * 4), interpret=True))
+        blk = np.asarray(_gather_tiles_call(
+            jnp.asarray(padded.view(f"u{width}").reshape(-1, LANES)),
+            jnp.asarray(hot), k_cap=k_cap, rows_per_tile=te // LANES,
+            interpret=True))
+        assert np.array_equal(dma.view(np.uint8).reshape(k_cap, -1), want)
+        assert np.array_equal(blk.view(np.uint8).reshape(k_cap, -1), want)
+    src = torch.from_numpy(raw)[offset:]
+    elems = src if width == 1 else src.view(torch.uint16)
+    hot_t = torch.from_numpy(hot)
+    b = scan_cuda.gather_tiles_plain(elems, hot_t, width=width,
+                                     tile_elems=te)
+    e = scan_cuda.gather_tiles_block_plain(elems, hot_t, tile_elems=te)
+    assert e.dtype == elems.dtype and e.shape == (k_cap, 2 * te)
+    assert np.array_equal(b.numpy(), want)
+    assert np.array_equal(e.view(torch.uint8).numpy(), want)
+    assert torch.equal(scan_cuda.gather_tiles(elems, hot_t, width=width,
+                                              tile_elems=te), b)
+    assert torch.equal(scan_cuda.gather_tiles_block(elems, hot_t,
+                                                    tile_elems=te), e)
 
 
 def _jax_steps(pat, arr, n, **kw):

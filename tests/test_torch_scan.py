@@ -233,3 +233,24 @@ def test_wrappers_reject_bad_operands():
     hot = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):
         scan_cuda.gather_tiles(words, hot, width=1, tile_elems=64)
+
+
+def test_gather_wrappers_launch_or_raise_off_the_cpu():
+    """Both gathers launch their kernel or raise for a tensor that is not
+    on the CPU: no plain version behind a device tensor."""
+    hot = torch.zeros(2, dtype=torch.int32, device="meta")
+    src = torch.zeros(3 * 64, dtype=torch.uint8, device="meta")
+    with pytest.raises(RuntimeError):
+        scan_cuda.gather_tiles(src, hot, width=1, tile_elems=64)
+    with pytest.raises(RuntimeError):
+        scan_cuda.gather_tiles_block(src, hot, tile_elems=64)
+
+
+def test_reset_launch_counts_clears_the_aligned_counts():
+    scan_cuda.launch_counts["gather_tiles"] += 3
+    scan_cuda.aligned_launch_counts["gather_tiles_block"] += 2
+    scan_cuda.reset_launch_counts()
+    assert set(scan_cuda.aligned_launch_counts) == {"gather_tiles",
+                                                    "gather_tiles_block"}
+    assert not any(scan_cuda.launch_counts.values())
+    assert not any(scan_cuda.aligned_launch_counts.values())
