@@ -9,9 +9,11 @@
    tiny shapes against their plain versions;
 3. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at a tiny tile, exactly (all values are
-   integers), and times both (the keyword-batch kernel at K = 8; the
-   element counts kernel D beside the word counts kernel A on the same
-   bytes; the gathers B and E, one bulk-copy kernel, on the same ids beside
+   integers), and times both (the word counts kernel A at the main path's
+   tiles and at the bench path's 8 Ki-element tiles, and the keyword-batch
+   kernel C at K = 3, 8 and 16, by back-to-back launches, each with its
+   bound; the element counts kernel D beside A on the same bytes; the
+   gathers B and E, one bulk-copy kernel, on the same ids beside
    ``index_select`` of the tile view, at k_cap 32 and 128 with the main
    path's ids and with distinct ids, and at the bench path's 8 KiB tiles
    and k_cap 32, by back-to-back launches with each call's host enqueue
@@ -52,8 +54,9 @@
 
 Phase 3 also holds kernel I against its plain version and ``torch.sum`` on
 the 512 MiB chunk buffer; phase 8 times it on the first 4 GiB as well
-(kernel J's shape).  Kernels that take well under a millisecond (the
-gathers, and kernel I beside ``torch.sum``) are timed by
+(kernel J's shape).  Kernels that take about a millisecond or less (the
+counts kernels A and C, the gathers, and kernel I beside ``torch.sum``)
+are timed by
 ``bench.back_to_back_ms``: many launches between one pair of CUDA events,
 enqueued while a spin kernel holds the stream.  Each path runs with the
 launch counts set to 0 just before it and read just after, and every
@@ -62,8 +65,9 @@ gather launch on a path must have 16-byte aligned pointers and tile size
 "device": {...}}``; the line before it is the card's ``nvidia-smi`` name
 and power limit, and before that a JSON object with each kernel's launches
 on its paths, its largest difference from the plain version, its time, its
-plain version's time, the bound (the least time the card could take: bytes
-over 3.35 TB/s or operations over 67 T/s, whichever is larger) and the time
+plain version's time, the bound (the least time the card could take:
+bytes over 3.35 TB/s or 32-bit integer operations over 16.7 T/s, whichever
+is larger, by ``bench.bound``) and the time
 of one PyTorch call computing the same function, where there is one.  Any
 failure exits non-zero before those lines.  Without a CUDA card it exits 1
 at once.
@@ -84,16 +88,7 @@ MIB = 1 << 20
 FILE_BYTES = 1 << 30
 CHUNK = 512 * MIB  # the engine's default device chunk (bytes)
 TE = 262_144  # the main path's count tile (elements)
-
-#: the H100 SXM's published device-memory rate, and its float32 rate outside
-#: the tensor cores taken as the peak of the 32-bit integer operations the
-#: counts kernels do; a bound from them is the
-#: least time the card could take
-HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 67e12
-#: integer operations per evaluated check (subtract, mask, compare); a
-#: window of random data needs at least its first check
-OPS_PER_CHECK = 3
+BENCH_TE = 8_192  # the bench path's count tile (elements)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -136,14 +131,6 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: int, n_ops: int):
-    """``(bound_ms, bound_by)``: the larger of the bytes' time at the
-    card's memory rate and the operations' time at its peak rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def path_launches(scan_cuda, phase: str) -> dict:
     """The launch counts since the last reset; fails unless every gather
     launch of the path had 16-byte aligned pointers and tile size, so that
@@ -182,6 +169,7 @@ def kernel_phase(torch):
     the kernels line without launch counts."""
     import numpy as np
 
+    from monkey_moore_tpu_torch.counts_bench import a_bound
     from monkey_moore_tpu_torch.ops import scan_cuda
     from monkey_moore_tpu_torch.ops.scan_torch import nonzero_capped
     from monkey_moore_tpu_torch.pattern import compile_pattern
@@ -222,8 +210,6 @@ def kernel_phase(torch):
                       "the plain versions of kernels A and D differ")
                 if te == TE and width == 1 and kw == "abcde":
                     # A and D on the same bytes: word view, element view
-                    ms["A"] = time_ms(torch, lambda: scan_cuda.tile_counts(
-                        words, checks, width=1, **args), 20)
                     ms["D"] = time_ms(
                         torch, lambda: scan_cuda.tile_counts_elems(
                             elems, checks, **args), 20)
@@ -233,11 +219,11 @@ def kernel_phase(torch):
                     ms["D plain"] = time_ms(
                         torch, lambda: scan_cuda.tile_counts_elems_plain(
                             elems, checks, **args), 5)
-                    # read every byte once, write the counts; at least the
-                    # first check of every window
-                    work["A"] = work["D"] = bound(
-                        words.numel() * 4 + n_tiles * 4,
-                        (valid - pat.length + 1) * OPS_PER_CHECK)
+                    work["A"] = work["D"] = a_bound(
+                        words.numel() * 4, n_tiles, valid, pat.length)
+                    ms["A regimes"] = counts_regimes(
+                        torch, scan_cuda, words, checks, pat, valid, err)
+                    ms["A"] = ms["A regimes"][0]["ms"]
                     load_checks(torch, scan_cuda, words, err, ms)
                 if te == TE and kw == "abcde":
                     gather_checks(torch, scan_cuda, nonzero_capped, words,
@@ -248,8 +234,8 @@ def kernel_phase(torch):
         check(err[name] == 0,
               f"kernel {name} differs from its plain version by {err[name]}")
     print(f"phase 3 kernels: A == D == plain (u8/u16, abcde/ab*de, te={TE} "
-          f"over {CHUNK // MIB} MiB and te=8): A {ms['A']:.4f} ms vs "
-          f"{ms['A plain']:.4f} ms plain, D {ms['D']:.4f} ms vs "
+          f"over {CHUNK // MIB} MiB and te=8): A {ms['A']:.4f} ms (back to "
+          f"back) vs {ms['A plain']:.4f} ms plain, D {ms['D']:.4f} ms vs "
           f"{ms['D plain']:.4f} ms plain on the same u8 buffer; B == E == "
           f"plain == index_select (k_cap 1/32/128): B {ms['B']:.4f} ms vs "
           f"{ms['B plain']:.4f} ms plain, E {ms['E']:.4f} ms vs "
@@ -260,7 +246,7 @@ def kernel_phase(torch):
           f"{ms['I chunk plain']:.4f} ms plain, torch.sum "
           f"{ms['I chunk library']:.4f} ms (host "
           f"{ms['I chunk library host']:.4f})", flush=True)
-    err_c, c_ms, c_plain_ms, work["C"] = multi_kernel_phase(torch, gen)
+    err_c, c_plain_ms, work["C"], c_regimes = multi_kernel_phase(torch, gen)
     src = "monkey_moore_tpu_torch/csrc/"
     tpu = "monkey_moore_tpu/ops/scan_pallas.py:"
 
@@ -274,18 +260,48 @@ def kernel_phase(torch):
 
     return [
         row("tile_counts", "tile_counts.cu", tpu + "612", "A", err["A"],
-            ms["A"], ms["A plain"], None),
+            ms["A"], ms["A plain"], None, regimes=ms["A regimes"]),
         row("gather_tiles", "gather_tiles.cu", tpu + "245", "B", err["B"],
             ms["B"], ms["B plain"], ms["B library"],
             regimes=ms["gather regimes"]),
         row("tile_counts_multi", "tile_counts_multi.cu", tpu + "838", "C",
-            err_c, c_ms, c_plain_ms, None),
+            err_c, next(r["ms"] for r in c_regimes if r["k"] == 8),
+            c_plain_ms, None, regimes=c_regimes),
         row("tile_counts_elems", "tile_counts_elems.cu", tpu + "373", "D",
             err["D"], ms["D"], ms["D plain"], None),
         row("gather_tiles_block", "gather_tiles.cu", tpu + "315", "E",
             err["E"], ms["E"], ms["E plain"], ms["B library"],
             regimes=ms["gather regimes"]),
     ], err["I"]
+
+
+def counts_regimes(torch, scan_cuda, words, checks, pat, valid, err):
+    """Phase 3, kernel A on the u8 512 MiB chunk buffer at the main path's
+    tiles and, on the same bytes, the bench path's 8 Ki-element tiles (the
+    shape of phase 8's A launches): each against its plain version and
+    timed by back-to-back launches; returns a row per tile size with its
+    bound (``counts_bench.a_bound``)."""
+    from monkey_moore_tpu_torch.bench import back_to_back_ms
+    from monkey_moore_tpu_torch.counts_bench import LAUNCHES, a_bound
+
+    rows = []
+    for te in (TE, BENCH_TE):
+        args = dict(width=1, tile_elems=te, length=pat.length,
+                    valid_count=valid)
+        got = scan_cuda.tile_counts(words, checks, **args)
+        want = scan_cuda.tile_counts_plain(words, checks, **args)
+        err["A"] = max(err["A"], int((got - want).abs().max()))
+        kms, host = back_to_back_ms(
+            lambda: scan_cuda.tile_counts(words, checks, **args), LAUNCHES)
+        bound_ms, bound_by = a_bound(words.numel() * 4, got.numel(), valid,
+                                     pat.length)
+        rows.append({"tile_elems": te, "ms": kms, "host_ms": host,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"phase 3 kernel A, {te}-element tiles over {CHUNK // MIB} "
+              f"MiB: {kms:.4f} ms (host {host:.4f}), bound {bound_ms:.4f} "
+              f"ms ({bound_by}); back to back, {LAUNCHES} launches",
+              flush=True)
+    return rows
 
 
 def load_checks(torch, scan_cuda, words, err, ms):
@@ -404,70 +420,84 @@ def gather_checks(torch, scan_cuda, nonzero_capped, words, elems, counts,
               f"ms; back to back, {LAUNCHES} launches", flush=True)
 
 
-#: the K = 8 batch of the keyword-batch kernel check: canonical plain
-#: keywords, a wildcard, a leading wildcard and a 12-character keyword
-MULTI_KERNEL_BATCH = [
-    ("monkey", 0), ("dr*gon", "*"), ("?bcde", "?"), ("abcdefghijkl", 0),
-    ("sword", 0), ("shield", 0), ("potion", 0), ("castle", 0),
-]
-
-
 def multi_kernel_phase(torch, gen):
     """Phase 3, keyword-batch kernel (C) against its plain version at
-    K = 8: u8 and u16, a 512 MiB chunk at the main path's tile and ten
-    8192-element tiles; each keyword planted at the start and across a tile
-    edge, the last one also at its last valid window.  Returns (largest
-    difference, kernel ms, plain ms, (bound ms, bound by)) at the u8
-    512 MiB chunk."""
+    K = 8 (``counts_bench.BATCH[:8]``: canonical plain keywords, a
+    wildcard, a leading wildcard and a 12-character keyword): u8 and u16, a
+    512 MiB chunk at the main path's tile and ten 8192-element tiles; each
+    keyword planted at the start and across a tile edge, the eighth also at
+    its last valid window.  On the u8 chunk also K = 3 and 16 (every
+    keyword of the 16 planted), and each K timed by back-to-back launches.
+    Returns (largest difference, plain ms at K = 8, (bound ms, bound by) at
+    K = 8, a row per K with its bound)."""
     import numpy as np
 
+    from monkey_moore_tpu_torch.bench import back_to_back_ms
+    from monkey_moore_tpu_torch.counts_bench import (
+        BATCH,
+        C_KS,
+        LAUNCHES,
+        c_bound,
+    )
     from monkey_moore_tpu_torch.ops import scan_cuda
     from monkey_moore_tpu_torch.pattern import compile_pattern
 
     err = 0
-    c_ms = c_plain_ms = None
+    regimes = []
     for width in (1, 2):
         dtype = np.uint8 if width == 1 else np.uint16
-        pats = [compile_pattern(kw, wc, dtype=dtype)
-                for kw, wc in MULTI_KERNEL_BATCH]
+        batch = [compile_pattern(kw, wc, dtype=dtype) for kw, wc in BATCH]
         for te, n_tiles in ((TE, CHUNK // (TE * width)), (8192, 10)):
             words = random_words(torch, gen, (n_tiles + 1) * te * width)
             valid = n_tiles * te - (1234 % te)
+            timed = te == TE and width == 1
+            planted = batch if timed else batch[:8]
             plants = [[1 + 64 * i, (i + 1) * te - 2]
-                      for i in range(len(pats))]
-            plants[-1].append(valid - pats[-1].length)
-            for i, (pat, pos) in enumerate(zip(pats, plants)):
+                      for i in range(len(planted))]
+            plants[7].append(valid - batch[7].length)
+            for i, (pat, pos) in enumerate(zip(planted, plants)):
                 plant_words(torch, words, pat, pos, 3 + i)
-            table, last_starts = scan_cuda.multi_operand(pats, valid, "cuda")
-            args = dict(width=width, tile_elems=te)
-            got = scan_cuda.tile_counts_multi(words, table, last_starts,
-                                              **args)
-            want = scan_cuda.tile_counts_multi_plain(words, table,
-                                                     last_starts, **args)
-            check(got.shape == want.shape == (len(pats), n_tiles),
-                  "kernel C shape")
-            err = max(err, int((got - want).abs().max()))
-            hit = want.cpu().numpy()
-            check(all(hit[k, p // te] > 0 for k, pos in enumerate(plants)
-                      for p in pos), "kernel C plants")
-            if te == TE and width == 1:
-                c_ms = time_ms(torch, lambda: scan_cuda.tile_counts_multi(
-                    words, table, last_starts, **args), 20)
-                c_plain_ms = time_ms(
-                    torch, lambda: scan_cuda.tile_counts_multi_plain(
-                        words, table, last_starts, **args), 5)
-                # one read of the chunk, K count rows written; at least the
-                # first check of every keyword at every window
-                c_work = bound(
-                    words.numel() * 4 + len(pats) * n_tiles * 4,
-                    sum(valid - p.length + 1 for p in pats) * OPS_PER_CHECK)
-            del words, got, want
+            for k in C_KS if timed else [8]:
+                table, last_starts = scan_cuda.multi_operand(
+                    batch[:k], valid, "cuda")
+                args = dict(width=width, tile_elems=te)
+                got = scan_cuda.tile_counts_multi(words, table, last_starts,
+                                                  **args)
+                want = scan_cuda.tile_counts_multi_plain(words, table,
+                                                         last_starts, **args)
+                check(got.shape == want.shape == (k, n_tiles),
+                      "kernel C shape")
+                err = max(err, int((got - want).abs().max()))
+                hit = want.cpu().numpy()
+                check(all(hit[i, p // te] > 0
+                          for i, pos in enumerate(plants[:k]) for p in pos),
+                      "kernel C plants")
+                if not timed:
+                    continue
+                kms, host = back_to_back_ms(
+                    lambda: scan_cuda.tile_counts_multi(
+                        words, table, last_starts, **args), LAUNCHES)
+                work = c_bound(words.numel() * 4, n_tiles, table,
+                               last_starts)
+                regimes.append({"k": k, "ms": kms, "host_ms": host,
+                                "bound_ms": work[0], "bound_by": work[1]})
+                if k == 8:
+                    c_work = work
+                    c_plain_ms = time_ms(
+                        torch, lambda: scan_cuda.tile_counts_multi_plain(
+                            words, table, last_starts, **args), 5)
+                del got, want
+            del words
             torch.cuda.empty_cache()
     check(err == 0, f"kernel C differs from its plain version by {err}")
-    print(f"phase 3 kernels: C == plain (K=8, u8/u16, te={TE} over "
-          f"{CHUNK // MIB} MiB and te=8192): {c_ms:.4f} ms vs "
-          f"{c_plain_ms:.4f} ms plain at u8", flush=True)
-    return err, c_ms, c_plain_ms, c_work
+    print(f"phase 3 kernels: C == plain (K=8 u8/u16, te={TE} over "
+          f"{CHUNK // MIB} MiB and te=8192; K={'/'.join(map(str, C_KS))} u8 "
+          f"over {CHUNK // MIB} MiB): " + ", ".join(
+              f"K={r['k']} {r['ms']:.4f} ms (host {r['host_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} {r['bound_by']})" for r in regimes)
+          + f", back to back, {LAUNCHES} launches; plain {c_plain_ms:.4f} "
+          "ms at K=8", flush=True)
+    return err, c_plain_ms, c_work, regimes
 
 
 def write_corpus(path: Path):
@@ -787,7 +817,11 @@ def bench_phase(torch, err_i: int):
     import numpy as np
 
     from monkey_moore_tpu_torch import bench
-    from monkey_moore_tpu_torch.bench import back_to_back_ms
+    from monkey_moore_tpu_torch.bench import (
+        HBM_BYTES_PER_S,
+        back_to_back_ms,
+        bound,
+    )
     from monkey_moore_tpu_torch.corpus import clear_corpus_cache
     from monkey_moore_tpu_torch.dense import fused_count_extract
     from monkey_moore_tpu_torch.ops import scan_cuda

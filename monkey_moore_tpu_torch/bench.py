@@ -52,8 +52,9 @@ from .ops.host import LANES
 from .ops.scan_cuda import load_sum
 from .pattern import compile_pattern
 
-__all__ = ["HBM_GBPS", "make_corpus", "tile_view", "back_to_back_ms",
-           "sol_times", "measure", "main"]
+__all__ = ["HBM_GBPS", "HBM_BYTES_PER_S", "INT_OPS_PER_S", "bound",
+           "make_corpus", "tile_view", "back_to_back_ms", "sol_times",
+           "measure", "main"]
 
 REPO = Path(__file__).resolve().parent.parent
 MIB = 1 << 20
@@ -69,6 +70,24 @@ SLACK_BYTES = 256 * MIB  # working set of the fused step beside the corpus
 HBM_GBPS = {
     "NVIDIA H100 80GB HBM3": 3350.0,
 }
+
+#: the H100 SXM's peaks, against which every bound of the port is taken:
+#: its published device-memory rate (NVIDIA's data sheet, at 700 W) and
+#: its 32-bit integer rate, 64 add, logic, compare or shift results per
+#: clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+#: throughput, compute capability 9.0) on 132 SMs at the 1.98 GHz boost
+#: clock behind the data sheet's 67 TFLOP/s of float32
+HBM_BYTES_PER_S = HBM_GBPS["NVIDIA H100 80GB HBM3"] * 1e9
+INT_OPS_PER_S = 64 * 132 * 1.98e9
+
+
+def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """``(bound_ms, bound_by)``: the least time the card could take, the
+    larger of the bytes' time at its memory rate and the 32-bit integer
+    operations' time at its integer rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 #: the keyword of the reference benchmark (``bench_search.cpp:29``)
 KEYWORD = "abcde"

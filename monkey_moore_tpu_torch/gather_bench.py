@@ -42,7 +42,7 @@ from pathlib import Path
 
 import torch
 
-from .bench import back_to_back_ms
+from .bench import HBM_BYTES_PER_S, back_to_back_ms
 from .ops._build import compile_library, open_library
 from .ops.scan_torch import nonzero_capped
 
@@ -52,7 +52,6 @@ _PKG = Path(__file__).resolve().parent
 SOURCE = _PKG / "csrc" / "gather_tiles.cu"
 BUILD = _PKG / "_build" / "gather_bench"
 ENTRIES = {"B": "mm_gather_tiles", "E": "mm_gather_tiles_block"}
-HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published rate
 CHUNK_BYTES = 512 << 20
 SEED = 20261016
 #: launches between one pair of CUDA events

@@ -9,7 +9,8 @@ Six wrappers over five kernels, hand-written in CUDA C++ for Hopper
 - :func:`gather_tiles` (kernel B, ``csrc/gather_tiles.cu``) replaces
   ``scan_pallas._gather_tiles_dma_call``;
 - :func:`tile_counts_multi` (kernel C, ``csrc/tile_counts_multi.cu``)
-  replaces ``scan_pallas._tile_counts_swar_multi_call``;
+  replaces ``scan_pallas._tile_counts_swar_multi_call``; A and C are the
+  entry points of one SWAR counts kernel, ``csrc/swar_counts.cuh``;
 - :func:`tile_counts_elems` (kernel D, ``csrc/tile_counts_elems.cu``)
   replaces ``scan_pallas._tile_counts_call``;
 - :func:`gather_tiles_block` (kernel E) replaces

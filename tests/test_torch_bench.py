@@ -11,6 +11,10 @@ points, on the CPU:
 - the bench's fused step finds the same offsets and values as the JAX
   package's ``dense.fused_count_extract`` on the same words;
 - ``gather_bench``'s sweep sources, id regimes and bounds;
+- ``bench.bound``, the one bound of the port's timings, and
+  ``counts_bench``'s source selection, its keyword batch and its bounds
+  (kernel C's distinct first pairs and operation count against a
+  brute-force walk of the kernel's order);
 - without a card the entry points exit 1 with "no CUDA device".
 
 Inputs are made with numpy (and ``torch.Generator``) from fixed seeds.
@@ -34,7 +38,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from monkey_moore_tpu import dense as jdense
 from monkey_moore_tpu.pattern import compile_pattern as jcompile
-from monkey_moore_tpu_torch import bench, gather_bench, perf_probe
+from monkey_moore_tpu_torch import bench, counts_bench, gather_bench, perf_probe
 from monkey_moore_tpu_torch.dense import fused_count_extract
 from monkey_moore_tpu_torch.ops import scan_cuda
 from monkey_moore_tpu_torch.pattern import compile_pattern
@@ -316,6 +320,102 @@ def test_gather_bench_builds_through_ops_build(tmp_path, monkeypatch):
         assert src.read_text() == gather_bench.variant_source(*values)
 
 
+def test_counts_bench_builds_through_ops_build(tmp_path, monkeypatch):
+    """``counts_bench`` builds this checkout's two counts sources and the
+    other checkout's ``tile_counts*.cu``, each by
+    ``ops._build.compile_library`` into its own file."""
+    built = {}
+
+    def compile_library(sources, lib_path):
+        built[lib_path.name] = [Path(s) for s in sources]
+        return lib_path
+
+    monkeypatch.setattr(counts_bench, "compile_library", compile_library)
+    monkeypatch.setattr(counts_bench, "open_library", lambda path: path.name)
+    monkeypatch.setattr(counts_bench, "BUILD", tmp_path / "build")
+    other = tmp_path / "csrc"
+    other.mkdir()
+    for name in ("tile_counts.cu", "tile_counts_multi.cu",
+                 "tile_counts_elems.cu", "gather_tiles.cu"):
+        (other / name).write_text("// another checkout\n")
+    libs = counts_bench.build_all(str(other))
+    assert libs == {"this": "this.so", "against": "against.so"}
+    assert [p.name for p in built["this.so"]] == [
+        "tile_counts.cu", "tile_counts_multi.cu"]
+    assert built["this.so"][0].parent == counts_bench.CSRC
+    assert [p.name for p in built["against.so"]] == [
+        "tile_counts.cu", "tile_counts_elems.cu", "tile_counts_multi.cu"]
+    assert counts_bench.build_all(None) == {"this": "this.so"}
+    with pytest.raises(RuntimeError, match="no tile_counts"):
+        counts_bench.build_all(str(tmp_path / "build"))
+
+
+def test_bench_bound():
+    """The card's peaks and the larger of the two times."""
+    assert bench.HBM_BYTES_PER_S == 3.35e12
+    assert bench.INT_OPS_PER_S == pytest.approx(16.72704e12)
+    assert bench.bound(3.35e9, 10**9) == (pytest.approx(1.0), "bytes")
+    ms, by = bench.bound(10**6, 16.72704e9)
+    assert by == "operations" and ms == pytest.approx(1.0)
+
+
+def test_counts_bench_batch_and_bounds():
+    """The batch: 16 keywords at u8 and u16, every one on the fused kernel-C
+    route at the main path's tiles.  The bounds at the 512 MiB chunk: A by
+    bytes; C by operations at K = 3, 8 and 16, whose first checks take two
+    pairs (three at K = 16): (1, 0) and the leading wildcard's (2, 1)."""
+    from monkey_moore_tpu_torch.dense import fused_multi_eligible
+
+    assert len(counts_bench.BATCH) == max(counts_bench.C_KS) == 16
+    for dtype in (np.uint8, np.uint16):
+        pats = [compile_pattern(kw, wc, dtype=dtype)
+                for kw, wc in counts_bench.BATCH]
+        assert fused_multi_eligible(pats, counts_bench.A_TILES[0])
+    chunk, te = counts_bench.CHUNK_BYTES, counts_bench.A_TILES[0]
+    valid = chunk - 1234
+    ms, by = counts_bench.a_bound(chunk + te, chunk // te, valid, 5)
+    assert by == "bytes" and ms == pytest.approx(
+        (chunk + te + 4 * (chunk // te)) / 3.35e12 * 1e3)
+    for k, n_pairs in ((3, 2), (8, 2), (16, 3)):
+        pats = [compile_pattern(kw, wc) for kw, wc in counts_bench.BATCH[:k]]
+        table, last_starts = scan_cuda.multi_operand(pats, valid, "cpu")
+        pairs = counts_bench.first_pairs(table, last_starts)
+        assert len(pairs) == n_pairs and (2, 1) in pairs
+        ms, by = counts_bench.c_bound(chunk + te, chunk // te, table,
+                                      last_starts)
+        assert by == "operations" and ms > (chunk + te) / 3.35e12 * 1e3
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+def test_counts_bench_c_bound_walks_the_kernel_order(k):
+    """``c_bound``'s operations equal a walk of the kernel's order, word by
+    word, on a small chunk: the patterns sorted by their first active check
+    (found here column by column), a diff wherever the pair changes among
+    the patterns whose windows reach the word, a compare for each of them;
+    limits that differ per pattern, one of them negative."""
+    rng = np.random.default_rng(k)
+    pats = [compile_pattern(kw, wc) for kw, wc in counts_bench.BATCH[:k]]
+    table, last_starts = scan_cuda.multi_operand(pats, 500, "cpu")
+    last_starts = torch.tensor(rng.integers(-1, 400, k), dtype=torch.int64)
+    first = []
+    for row in table.numpy():
+        on = [j for j in range(row.shape[1]) if row[3, j]]
+        first.append((int(row[0, on[0]]), int(row[1, on[0]])) if on else None)
+    words = [max(0, -(-(int(last) + 1) // 4)) for last in last_starts]
+    ops = 0
+    for w in range(max(words)):
+        held = None
+        for i in sorted(range(k), key=lambda i: (first[i] or (-1, -1), i)):
+            if first[i] is None or w >= words[i]:
+                continue
+            if first[i] != held:
+                ops, held = ops + counts_bench.DIFF_OPS, first[i]
+            ops += counts_bench.EQUAL_OPS
+    # no bytes, so that the operations set the bound
+    ms, by = counts_bench.c_bound(0, 0, table, last_starts)
+    assert by == "operations" and (ms, by) == bench.bound(0, ops)
+
+
 def test_compile_library_needs_nvcc(tmp_path, monkeypatch):
     from monkey_moore_tpu_torch.ops import _build
 
@@ -325,7 +425,8 @@ def test_compile_library_needs_nvcc(tmp_path, monkeypatch):
     assert not (tmp_path / "x.so").exists()
 
 
-@pytest.mark.parametrize("module", ["bench", "perf_probe", "gather_bench"])
+@pytest.mark.parametrize("module", ["bench", "perf_probe", "gather_bench",
+                                    "counts_bench"])
 def test_entry_points_need_a_card(module):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the run would start")

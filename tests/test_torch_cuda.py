@@ -362,3 +362,201 @@ def test_load_sum_kernel_equals_plain_and_torch_sum(cuda, n_words,
     assert torch.equal(sums, p_sums) and int(total) == int(p_total)
     body = words[: n_tiles * tile_words]
     assert int(total) == int(torch.sum(body, dtype=torch.int32))
+
+
+def _words_at(arr, offset_words=0, device="cpu"):
+    """*arr*'s bytes as int32 words, ``offset_words`` words into a longer
+    buffer (a view whose data pointer is not 16-byte aligned)."""
+    words = arr.reshape(-1).view("<i4")
+    raw = np.zeros(len(words) + offset_words + 4, dtype=np.int32)
+    raw[offset_words : offset_words + len(words)] = words
+    return torch.from_numpy(raw).to(device)[
+        offset_words : offset_words + len(words)]
+
+
+def _checks(pairs, exps):
+    table = np.zeros((3, len(pairs)), dtype=np.int64)
+    table[0], table[1] = zip(*pairs)
+    table[2] = exps
+    return torch.tensor(table, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_tile_counts_every_shift_offset(cuda, width):
+    """Kernel A at check shifts of every byte offset mod 4 and across the
+    16-byte group edge (cur 0-20 against prev 0, cur - 1 and 17), one and
+    two checks, with windows planted to match, against the plain
+    version."""
+    rng = np.random.default_rng(11)
+    dtype = np.uint8 if width == 1 else np.uint16
+    mod = 1 << (8 * width)
+    te, n_tiles = 64, 20
+    for cur in range(21):
+        for prev in sorted({0, max(cur - 1, 0), 17}):
+            second = ((cur * 7 + 3) % 23, 0)
+            for pairs in ([(cur, prev)], [(cur, prev), second]):
+                # a pair (c, c) holds only for expected 0
+                exps = [int(e) if c != p_ else 0 for (c, p_), e in
+                        zip(pairs, rng.integers(0, mod, len(pairs)))]
+                length = max(max(p) for p in pairs) + 1
+                arr = rng.integers(0, mod, (n_tiles + 1) * te).astype(dtype)
+                for e in rng.integers(0, n_tiles * te - length, 12):
+                    for (c, p), x in zip(pairs, exps):
+                        arr[e + c] = (int(arr[e + p]) + x) % mod
+                words = _words_at(arr)
+                checks = _checks(pairs, exps)
+                args = dict(width=width, tile_elems=te, length=length,
+                            valid_count=n_tiles * te - 5)
+                want = scan_cuda.tile_counts(words, checks, **args)
+                got = scan_cuda.tile_counts(words.to(cuda), checks.to(cuda),
+                                            **args)
+                assert got.cpu().tolist() == want.tolist(), (pairs, exps)
+                if len(pairs) == 1:  # two checks may undo each other's plants
+                    assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_tile_counts_long_keyword_every_check(cuda, width, monkeypatch):
+    """A 310-element keyword under ``MMTPU_PREFILTER_CHECKS=0``: 309
+    checks, shifts past the staged overhang, read from device memory."""
+    monkeypatch.setenv("MMTPU_PREFILTER_CHECKS", "0")
+    rng = np.random.default_rng(12)
+    word = "".join(chr(97 + (i * 7 + width) % 26) for i in range(310))
+    pat = compile_pattern(word, dtype=np.uint8 if width == 1 else np.uint16)
+    checks = scan_cuda.prefilter_operand(pat, "cpu")
+    assert checks.shape == (3, 309)
+    te, n_tiles = 4096, 6
+    valid = n_tiles * te - 3
+    plants = [5, te - 100, 3 * te + 1, valid - pat.length]
+    for offset in (0, 1):
+        words = _planted_words(rng, pat, n_tiles, te, valid, plants)
+        words = _words_at(words.numpy(), offset)
+        args = dict(width=width, tile_elems=te, length=pat.length,
+                    valid_count=valid)
+        want = scan_cuda.tile_counts(words, checks, **args)
+        got = scan_cuda.tile_counts(words.to(cuda), checks.to(cuda), **args)
+        assert got.cpu().tolist() == want.tolist()
+        assert int(want.sum()) >= len(plants)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("tile_elems", [8, 12, 8192, 262_144])
+@pytest.mark.parametrize("kw,wc,width", [("abcde", 0, 1), ("ab*de", "*", 1),
+                                         ("abcde", 0, 2), ("?bcde", "?", 2)])
+def test_tile_counts_tile_sizes(cuda, kw, wc, width, tile_elems, offset):
+    """Kernel A at tiles of 8, 12, 8192 and 262144 elements (several tiles
+    to a block's unit, one tile to a unit), on words 0, 4 and 12 bytes past
+    a 16-byte boundary."""
+    rng = np.random.default_rng(tile_elems + offset)
+    pat = compile_pattern(kw, wc, dtype=np.uint8 if width == 1 else np.uint16)
+    te = tile_elems
+    n_tiles = max(3, min(4096, (4 << 20) // (te * width)))
+    valid = n_tiles * te - 3
+    plants = [0, te + 1, (n_tiles // 2) * te - 2, valid - pat.length]
+    words = _planted_words(rng, pat, n_tiles, te, valid, plants)
+    words = _words_at(words.numpy(), offset)
+    checks = scan_cuda.prefilter_operand(pat, "cpu")
+    args = dict(width=width, tile_elems=te, length=pat.length,
+                valid_count=valid)
+    want = scan_cuda.tile_counts(words, checks, **args)
+    got = scan_cuda.tile_counts(words.to(cuda), checks.to(cuda), **args)
+    assert got.cpu().tolist() == want.tolist()
+    assert int(want.sum()) >= len(plants)
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_counts_valid_count_at_a_tile_end(cuda, width):
+    """``valid_count`` at each of the last 32 positions of a tile, on data
+    where every window matches (zeros, a keyword of equal letters) and on
+    random data: kernel A, and kernel C with two keywords of different
+    lengths, against their plain versions."""
+    rng = np.random.default_rng(13)
+    dtype = np.uint8 if width == 1 else np.uint16
+    mod = 1 << (8 * width)
+    te, n_tiles = 4096, 4
+    same = compile_pattern("aaaaa", dtype=dtype)
+    pats = [same, compile_pattern("aaaaaaaaa", dtype=dtype)]
+    for arr in (np.zeros((n_tiles + 1) * te, dtype=dtype),
+                rng.integers(0, mod, (n_tiles + 1) * te).astype(dtype)):
+        words = _words_at(arr)
+        gpu = words.to(cuda)
+        checks = scan_cuda.prefilter_operand(same, "cpu")
+        for valid in range(3 * te - 32, 3 * te):
+            args = dict(width=width, tile_elems=te, length=same.length,
+                        valid_count=valid)
+            want = scan_cuda.tile_counts(words, checks, **args)
+            got = scan_cuda.tile_counts(gpu, checks.to(cuda), **args)
+            assert got.cpu().tolist() == want.tolist(), valid
+            table, last_starts = scan_cuda.multi_operand(pats, valid, "cpu")
+            cargs = dict(width=width, tile_elems=te)
+            want_c = scan_cuda.tile_counts_multi(words, table, last_starts,
+                                                 **cargs)
+            got_c = scan_cuda.tile_counts_multi(gpu, table.to(cuda),
+                                                last_starts.to(cuda), **cargs)
+            assert got_c.cpu().tolist() == want_c.tolist(), valid
+        if not arr.any():
+            assert int(want.sum()) == 3 * te - 1 - same.length + 1
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("width", [1, 2])
+def test_tile_counts_multi_padding_and_limits(cuda, k, width):
+    """Kernel C at 8192-element tiles with the phase 3 batch's keywords
+    (leading wildcard, wildcard, canonical ones whose padding checks are
+    inactive), per-pattern limits that differ (cut short, negative, past
+    the buffer) and a data pointer 4 bytes past a 16-byte boundary."""
+    from monkey_moore_tpu_torch.counts_bench import BATCH
+
+    rng = np.random.default_rng(14 + k)
+    dtype = np.uint8 if width == 1 else np.uint16
+    mod = 1 << (8 * width)
+    pats = [compile_pattern(kw, wc, dtype=dtype) for kw, wc in BATCH[:k]]
+    te, n_tiles = 8192, 9
+    valid = n_tiles * te - 7
+    arr = rng.integers(0, mod, (n_tiles + 1) * te).astype(dtype)
+    for i, pat in enumerate(pats):
+        kw = (np.array(pat.keyword, dtype=np.int64) + i) % mod
+        for pos in (3 + 40 * i, (i % (n_tiles - 1) + 1) * te - 2,
+                    valid - pat.length):
+            arr[pos : pos + pat.length] = kw.astype(dtype)
+    words = _words_at(arr, 1)
+    table, last_starts = scan_cuda.multi_operand(pats, valid, "cpu")
+    assert not bool(table[:, 3].all()) or k == 1  # padding checks present
+    cuts = [valid - p.length - 5000 * (i % 3) for i, p in enumerate(pats)]
+    if k > 2:
+        cuts[1], cuts[2] = -1, 10 * n_tiles * te
+    for limits in (last_starts, torch.tensor(cuts, dtype=torch.int64)):
+        args = dict(width=width, tile_elems=te)
+        want = scan_cuda.tile_counts_multi(words, table, limits, **args)
+        got = scan_cuda.tile_counts_multi(words.to(cuda), table.to(cuda),
+                                          limits.to(cuda), **args)
+        assert got.cpu().tolist() == want.tolist()
+    assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("k,length,n_checks", [(3058, 5, 4), (5282, 3, 2)])
+def test_tile_counts_multi_batch_past_one_block(cuda, k, length, n_checks):
+    """Kernel C at the main path's tiles on batches as large as the scalar
+    kernel it replaced took there (3058 keywords of 4 checks, 5282 of 2):
+    their tables outgrow one block's shared memory, so the batch runs as
+    groups of patterns, each writing its own rows of counts."""
+    rng = np.random.default_rng(k)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    pats = [compile_pattern("".join(rng.choice(letters, length)))
+            for _ in range(k)]
+    te, n_tiles = 262_144, 2
+    valid = n_tiles * te - 3
+    arr = rng.integers(0, 256, (n_tiles + 1) * te).astype(np.uint8)
+    for i in range(0, k, 97):
+        kw = (np.array(pats[i].keyword, dtype=np.int64) + i) % 256
+        pos = int(rng.integers(0, valid - length))
+        arr[pos : pos + length] = kw.astype(np.uint8)
+    words = torch.from_numpy(arr.view("<i4").copy()).to(cuda)
+    table, last_starts = scan_cuda.multi_operand(pats, valid, cuda)
+    assert not bool(table[:, 3, n_checks:].any())  # only padding cut away
+    table = table[:, :, :n_checks].contiguous()
+    args = dict(width=1, tile_elems=te)
+    got = scan_cuda.tile_counts_multi(words, table, last_starts, **args)
+    want = scan_cuda.tile_counts_multi_plain(words, table, last_starts,
+                                             **args)
+    assert torch.equal(got, want) and int(want.sum()) > 0
