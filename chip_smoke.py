@@ -12,12 +12,14 @@
    integers), and times both (the word counts kernel A at the main path's
    tiles and at the bench path's 8 Ki-element tiles, and the keyword-batch
    kernel C at K = 3, 8 and 16, by back-to-back launches, each with its
-   bound; the element counts kernel D beside A on the same bytes; the
-   gathers B and E, one bulk-copy kernel, on the same ids beside
-   ``index_select`` of the tile view, at k_cap 32 and 128 with the main
-   path's ids and with distinct ids, and at the bench path's 8 KiB tiles
-   and k_cap 32, by back-to-back launches with each call's host enqueue
-   time);
+   bound; the element counts kernel D, the same SWAR kernel, also on
+   copies of each buffer that start inside a word, and timed beside A on
+   the same bytes at u8 and u16 and on a u8 copy 1 byte past a 16-byte
+   boundary; the gathers B and E, one bulk-copy kernel, on the same ids
+   beside ``index_select`` of the tile view, at k_cap 32 and 128 with the
+   main path's ids and with distinct ids, and at the bench path's 8 KiB
+   tiles and k_cap 32, by back-to-back launches with each call's host
+   enqueue time);
 4. writes a 1 GiB file of seeded random bytes with planted keywords and
    searches it through ``monkey_moore_tpu_torch.engine.SearchEngine`` with
    default settings (the resident device route): an 8-bit keyword, an
@@ -55,10 +57,9 @@
 Phase 3 also holds kernel I against its plain version and ``torch.sum`` on
 the 512 MiB chunk buffer; phase 8 times it on the first 4 GiB as well
 (kernel J's shape).  Kernels that take about a millisecond or less (the
-counts kernels A and C, the gathers, and kernel I beside ``torch.sum``)
-are timed by
-``bench.back_to_back_ms``: many launches between one pair of CUDA events,
-enqueued while a spin kernel holds the stream.  Each path runs with the
+counts kernels A, C and D, the gathers, and kernel I beside ``torch.sum``)
+are timed by ``bench.back_to_back_ms``: many launches between one pair of
+CUDA events, enqueued while a spin kernel holds the stream.  Each path runs with the
 launch counts set to 0 just before it and read just after, and every
 gather launch on a path must have 16-byte aligned pointers and tile size
 (the bulk route).  The last line is ``{"ok": true,
@@ -169,7 +170,7 @@ def kernel_phase(torch):
     the kernels line without launch counts."""
     import numpy as np
 
-    from monkey_moore_tpu_torch.counts_bench import a_bound
+    from monkey_moore_tpu_torch.counts_bench import a_bound, misaligned_copy
     from monkey_moore_tpu_torch.ops import scan_cuda
     from monkey_moore_tpu_torch.ops.scan_torch import nonzero_capped
     from monkey_moore_tpu_torch.pattern import compile_pattern
@@ -177,7 +178,7 @@ def kernel_phase(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     err = {"A": 0, "B": 0, "D": 0, "E": 0, "I": 0}
-    ms = {}
+    ms = {"D regimes": []}
     work = {}  # kernel -> (bound_ms, bound_by) at the timed shape
     for width in (1, 2):
         dtype = np.uint8 if width == 1 else np.uint16
@@ -208,11 +209,17 @@ def kernel_phase(torch):
                 err["D"] = max(err["D"], int((got_d - want_d).abs().max()))
                 check(torch.equal(want_d, want),
                       "the plain versions of kernels A and D differ")
+                # D on a copy of the same elements that starts inside a word
+                shifted = misaligned_copy(elems, width)
+                got_m = scan_cuda.tile_counts_elems(shifted, checks, **args)
+                err["D"] = max(err["D"], int((got_m - want_d).abs().max()))
+                del shifted, got_m
+                if te == TE and kw == "abcde":
+                    ms["D regimes"] += elems_regimes(
+                        torch, scan_cuda, words, elems, checks, pat, valid,
+                        width, want_d, err)
                 if te == TE and width == 1 and kw == "abcde":
                     # A and D on the same bytes: word view, element view
-                    ms["D"] = time_ms(
-                        torch, lambda: scan_cuda.tile_counts_elems(
-                            elems, checks, **args), 20)
                     ms["A plain"] = time_ms(
                         torch, lambda: scan_cuda.tile_counts_plain(
                             words, checks, width=1, **args), 5)
@@ -233,10 +240,12 @@ def kernel_phase(torch):
     for name in err:
         check(err[name] == 0,
               f"kernel {name} differs from its plain version by {err[name]}")
+    ms["D"] = ms["D regimes"][0]["ms"]  # u8, 16-byte aligned
     print(f"phase 3 kernels: A == D == plain (u8/u16, abcde/ab*de, te={TE} "
-          f"over {CHUNK // MIB} MiB and te=8): A {ms['A']:.4f} ms (back to "
-          f"back) vs {ms['A plain']:.4f} ms plain, D {ms['D']:.4f} ms vs "
-          f"{ms['D plain']:.4f} ms plain on the same u8 buffer; B == E == "
+          f"over {CHUNK // MIB} MiB and te=8; D also on copies that start "
+          f"inside a word): A {ms['A']:.4f} ms vs {ms['A plain']:.4f} ms "
+          f"plain, D {ms['D']:.4f} ms vs {ms['D plain']:.4f} ms plain on "
+          f"the same u8 buffer (back to back); B == E == "
           f"plain == index_select (k_cap 1/32/128): B {ms['B']:.4f} ms vs "
           f"{ms['B plain']:.4f} ms plain, E {ms['E']:.4f} ms vs "
           f"{ms['E plain']:.4f} ms plain at k_cap=32, main-path ids "
@@ -268,7 +277,8 @@ def kernel_phase(torch):
             err_c, next(r["ms"] for r in c_regimes if r["k"] == 8),
             c_plain_ms, None, regimes=c_regimes),
         row("tile_counts_elems", "tile_counts_elems.cu", tpu + "373", "D",
-            err["D"], ms["D"], ms["D plain"], None),
+            err["D"], ms["D"], ms["D plain"], None,
+            regimes=ms["D regimes"]),
         row("gather_tiles_block", "gather_tiles.cu", tpu + "315", "E",
             err["E"], ms["E"], ms["E plain"], ms["B library"],
             regimes=ms["gather regimes"]),
@@ -301,6 +311,45 @@ def counts_regimes(torch, scan_cuda, words, checks, pat, valid, err):
               f"MiB: {kms:.4f} ms (host {host:.4f}), bound {bound_ms:.4f} "
               f"ms ({bound_by}); back to back, {LAUNCHES} launches",
               flush=True)
+    return rows
+
+
+def elems_regimes(torch, scan_cuda, words, elems, checks, pat, valid,
+                  width, want, err):
+    """Phase 3, kernel D on the 512 MiB chunk buffer at the main path's
+    tiles, beside kernel A on the same bytes (the word view), both timed by
+    back-to-back launches; at u8 also on a copy 1 byte past a 16-byte
+    boundary.  Each launch is held to *want*, the plain counts of those
+    bytes; returns a row per regime with A's time and the bound
+    (``counts_bench.a_bound`` at the element width)."""
+    from monkey_moore_tpu_torch.bench import back_to_back_ms
+    from monkey_moore_tpu_torch.counts_bench import (
+        LAUNCHES, a_bound, misaligned_copy)
+
+    args = dict(tile_elems=TE, length=pat.length, valid_count=valid)
+    a_ms, a_host = back_to_back_ms(
+        lambda: scan_cuda.tile_counts(words, checks, width=width, **args),
+        LAUNCHES)
+    bound_ms, bound_by = a_bound(words.numel() * 4, want.numel(), valid,
+                                 pat.length, width)
+    rows = []
+    for offset in (0, 1) if width == 1 else (0,):
+        view = elems if offset == 0 else misaligned_copy(elems, offset)
+        got = scan_cuda.tile_counts_elems(view, checks, **args)
+        err["D"] = max(err["D"], int((got - want).abs().max()))
+        kms, host = back_to_back_ms(
+            lambda: scan_cuda.tile_counts_elems(view, checks, **args),
+            LAUNCHES)
+        rows.append({"width": width, "offset": offset, "tile_elems": TE,
+                     "ms": kms, "host_ms": host, "a_ms": a_ms,
+                     "a_host_ms": a_host, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        print(f"phase 3 kernel D, u{8 * width} elements {offset} bytes past "
+              f"a 16-byte boundary, {TE}-element tiles over {CHUNK // MIB} "
+              f"MiB: {kms:.4f} ms (host {host:.4f}), A on the same bytes "
+              f"{a_ms:.4f} ms (host {a_host:.4f}), bound {bound_ms:.4f} ms "
+              f"({bound_by}); back to back, {LAUNCHES} launches", flush=True)
+        del view, got
     return rows
 
 

@@ -1,4 +1,5 @@
-// The counts kernel of kernels A (tile_counts.cu) and C (tile_counts_multi.cu).
+// The counts kernel of kernels A (tile_counts.cu), C (tile_counts_multi.cu)
+// and D (tile_counts_elems.cu).
 //
 // One kernel computes, for K patterns of C checks each,
 //
@@ -7,11 +8,13 @@
 //                     (x[e+cur[k,j]] - x[e+prev[k,j]]) mod 2^w
 //                     == expected[k,j] }
 //
-// where x is the word buffer viewed as little-endian u8 (w = 8) or u16
-// (w = 16) elements: T counted tiles plus one halo tile.  Kernel A is the
-// case K = 1 with every check active.  last[k] is 64-bit, and is cut to the
-// windows whose reads stay inside the buffer (a shift below 0 cuts them
-// all), so a window never reads past it.
+// where x is the buffer viewed as little-endian u8 (w = 8) or u16 (w = 16)
+// elements: T counted tiles plus one halo tile.  Kernel A is the case K = 1
+// with every check active, on packed words; kernel D the same case on a
+// typed element buffer, which may start at any element and end at any
+// byte; kernel C the whole batch, on packed words.  last[k] is 64-bit, and
+// is cut to the windows whose reads stay inside the buffer (a shift below
+// 0 cuts them all), so a window never reads past it.
 //
 // The formulation is the TPU kernels' (scan_pallas.py:544-545, 786-794):
 // a carry-free per-element subtract, an xor with the expected value splat
@@ -31,7 +34,12 @@
 // up) are copied into shared memory by cp.async, 16 bytes a thread, one
 // pass ahead of the pass being counted, into the other of two buffers; a
 // word at any byte offset is then two aligned reads and a funnel shift.  A
-// check shift past the overhang reads device memory.  Each warp takes
+// check shift past the overhang reads device memory.  Every read is of a
+// 16- or 4-byte aligned address, and a byte outside the buffer reads as 0:
+// the staging zero-fills past the buffer's end by cp.async's source size,
+// and a device-memory read masks the bytes around a buffer that starts or
+// ends inside a word (only kernel D's can; for A's and C's whole words the
+// masks keep every byte).  The staged loop never masks.  Each warp takes
 // 512-byte segments of a pass; lane l owns the words l, l+32, l+64 and
 // l+96 of a segment (16 u8 or 8 u16 windows), so the lanes of a warp read
 // consecutive shared-memory words, free of bank conflicts.
@@ -128,7 +136,7 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 }
 
 struct Args {
-  const uint8_t* data;  // the word buffer, 4-byte aligned
+  const uint8_t* data;  // the buffer, aligned to its W-byte element
   int64_t n_bytes;      // (n_tiles + 1) * tile_elems * W
   int64_t n_tiles;
   int64_t tile_elems;
@@ -224,13 +232,17 @@ struct Unit {
 };
 
 // Reads of one pass: shared memory, or device memory past the overhang.
+// A byte outside the buffer reads as 0: a device read masks the bytes of
+// the first and last words that lie outside it.
 struct Reader {
   const uint32_t* stage;  // the staged pass: word 0 at base-space byte c
   int64_t c;
   int ovh;                // staged bytes past the pass
-  const uint32_t* data;   // the buffer's words
-  int64_t w_lo;           // base-space word index of the buffer's word 0
+  const uint32_t* data;   // the 4-byte aligned words holding the buffer
+  int64_t w_lo;           // base-space word index of data[0]
   int64_t n_words;
+  uint32_t head_mask;     // the buffer's bytes of data[0]
+  uint32_t tail_mask;     // the buffer's bytes of data[n_words - 1]
 
   __device__ __forceinline__ bool staged(int sh) const {
     return sh >= 0 && sh + 4 <= ovh;
@@ -238,7 +250,11 @@ struct Reader {
 
   __device__ __forceinline__ uint32_t global_word(int64_t w) const {
     w -= w_lo;
-    return w >= 0 && w < n_words ? __ldg(data + w) : 0u;
+    if (w < 0 || w >= n_words) return 0u;
+    uint32_t v = __ldg(data + w);
+    if (w == 0) v &= head_mask;
+    if (w == n_words - 1) v &= tail_mask;
+    return v;
   }
 
   // the word at byte 4 * qw + sh of the pass
@@ -278,7 +294,8 @@ template <int W>
 __device__ void count_word(const Smem& s, int k, int tpu, uint32_t z,
                            int64_t p, int64_t mis, int64_t e_lo,
                            int64_t e_hi, int64_t t0, int64_t te) {
-  const int64_t e0 = (p - mis) / W;  // exact: p and mis are multiples of 4
+  // exact: p is a multiple of 4 and mis of W (the buffer is W-aligned)
+  const int64_t e0 = (p - mis) / W;
   for (int j = 0; j < Swar<W>::kPerWord; ++j) {
     if (!((z >> (Swar<W>::kBits * (j + 1) - 1)) & 1u)) continue;
     const int64_t e = e0 + j;
@@ -368,11 +385,17 @@ __global__ void __launch_bounds__(kThreads) swar_counts_kernel(Args a) {
   const int ovh = (ovh_s + 15) & ~15;
   const int64_t max_last = max_last_s;
 
+  // the buffer's byte 0 is byte `head` of data[0], and data[w - w_lo] is
+  // base-space word w; A's and C's words have head and tail 0
+  const int head = static_cast<int>(mis & 3);
+  const int tail = static_cast<int>((head + a.n_bytes) & 3);
   Reader rd;
   rd.ovh = ovh;
-  rd.data = reinterpret_cast<const uint32_t*>(a.data);
+  rd.data = reinterpret_cast<const uint32_t*>(a.data - head);
   rd.w_lo = mis / 4;
-  rd.n_words = a.n_bytes / 4;
+  rd.n_words = (head + a.n_bytes + 3) / 4;
+  rd.head_mask = ~0u << (8 * head);
+  rd.tail_mask = tail ? ~0u >> (8 * (4 - tail)) : ~0u;
   uint2* queue = s.queue + warp * kQueue;
 
   // the passes of this block's units, one staged ahead of the one counted
@@ -594,10 +617,11 @@ int launch_width(Args a, cudaStream_t stream) {
 }
 
 // Checks the sizes and launches at width 1 or 2; returns a CUDA error code.
+// The buffer must be aligned to its element (A's and C's words are).
 inline int launch_swar_counts(Args a, int width, cudaStream_t stream) {
   if (a.n_tiles <= 0 || a.n_patterns <= 0) return 0;
   if (a.tile_elems <= 0 || a.n_checks < 0 ||
-      (reinterpret_cast<uintptr_t>(a.data) & 3) != 0) {
+      (reinterpret_cast<uintptr_t>(a.data) & (width - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (width == 1) return launch_width<1>(a, stream);

@@ -52,8 +52,8 @@ _SIGNATURES = {
     ],
     "mm_tile_counts_elems": [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p,
     ],
     "mm_gather_tiles_block": [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,

@@ -1,7 +1,7 @@
 """The fused device step's kernels — counterpart of the JAX package's
 ``ops/scan_pallas.py`` (the single-device part of it).
 
-Six wrappers over five kernels, hand-written in CUDA C++ for Hopper
+Six wrappers over three kernels, hand-written in CUDA C++ for Hopper
 (``csrc/``):
 
 - :func:`tile_counts` (kernel A, ``csrc/tile_counts.cu``) replaces
@@ -9,10 +9,10 @@ Six wrappers over five kernels, hand-written in CUDA C++ for Hopper
 - :func:`gather_tiles` (kernel B, ``csrc/gather_tiles.cu``) replaces
   ``scan_pallas._gather_tiles_dma_call``;
 - :func:`tile_counts_multi` (kernel C, ``csrc/tile_counts_multi.cu``)
-  replaces ``scan_pallas._tile_counts_swar_multi_call``; A and C are the
-  entry points of one SWAR counts kernel, ``csrc/swar_counts.cuh``;
+  replaces ``scan_pallas._tile_counts_swar_multi_call``;
 - :func:`tile_counts_elems` (kernel D, ``csrc/tile_counts_elems.cu``)
-  replaces ``scan_pallas._tile_counts_call``;
+  replaces ``scan_pallas._tile_counts_call``; A, C and D are the entry
+  points of one SWAR counts kernel, ``csrc/swar_counts.cuh``;
 - :func:`gather_tiles_block` (kernel E) replaces
   ``scan_pallas._gather_tiles_call``: the same bulk-copy kernel as B
   (``csrc/gather_tiles.cu``) on an element buffer;
@@ -290,8 +290,8 @@ def tile_counts_elems(
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mm_tile_counts_elems(
             elems.data_ptr(), n_tiles, tile_elems, elems.element_size(),
-            checks.data_ptr(), int(checks.shape[1]), length - 1,
-            valid_count - length, out.data_ptr(), stream,
+            checks.data_ptr(), int(checks.shape[1]), valid_count - length,
+            out.data_ptr(), stream,
         )
     _raise_on(rc, "tile_counts_elems")
     launch_counts["tile_counts_elems"] += 1

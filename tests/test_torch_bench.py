@@ -21,6 +21,7 @@ Inputs are made with numpy (and ``torch.Generator``) from fixed seeds.
 Tolerance: exact equality — every value is an integer.
 """
 
+import ctypes
 import json
 import os
 import re
@@ -321,8 +322,8 @@ def test_gather_bench_builds_through_ops_build(tmp_path, monkeypatch):
 
 
 def test_counts_bench_builds_through_ops_build(tmp_path, monkeypatch):
-    """``counts_bench`` builds this checkout's two counts sources and the
-    other checkout's ``tile_counts*.cu``, each by
+    """``counts_bench`` builds this checkout's three counts sources (A, D
+    and C) and the other checkout's ``tile_counts*.cu``, each by
     ``ops._build.compile_library`` into its own file."""
     built = {}
 
@@ -341,7 +342,7 @@ def test_counts_bench_builds_through_ops_build(tmp_path, monkeypatch):
     libs = counts_bench.build_all(str(other))
     assert libs == {"this": "this.so", "against": "against.so"}
     assert [p.name for p in built["this.so"]] == [
-        "tile_counts.cu", "tile_counts_multi.cu"]
+        "tile_counts.cu", "tile_counts_elems.cu", "tile_counts_multi.cu"]
     assert built["this.so"][0].parent == counts_bench.CSRC
     assert [p.name for p in built["against.so"]] == [
         "tile_counts.cu", "tile_counts_elems.cu", "tile_counts_multi.cu"]
@@ -370,8 +371,8 @@ def test_counts_bench_batch_and_bounds():
     for dtype in (np.uint8, np.uint16):
         pats = [compile_pattern(kw, wc, dtype=dtype)
                 for kw, wc in counts_bench.BATCH]
-        assert fused_multi_eligible(pats, counts_bench.A_TILES[0])
-    chunk, te = counts_bench.CHUNK_BYTES, counts_bench.A_TILES[0]
+        assert fused_multi_eligible(pats, counts_bench.TE)
+    chunk, te = counts_bench.CHUNK_BYTES, counts_bench.TE
     valid = chunk - 1234
     ms, by = counts_bench.a_bound(chunk + te, chunk // te, valid, 5)
     assert by == "bytes" and ms == pytest.approx(
@@ -384,6 +385,91 @@ def test_counts_bench_batch_and_bounds():
         ms, by = counts_bench.c_bound(chunk + te, chunk // te, table,
                                       last_starts)
         assert by == "operations" and ms > (chunk + te) / 3.35e12 * 1e3
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_counts_bench_a_bound_counts_words_of_windows(width):
+    """``a_bound``'s operations on a tiny chunk, counted by hand: 8 u8
+    windows fill 2 words, 8 u16 windows 4, and a ninth window starts a
+    word either way; each word takes one diff and one compare (9
+    instructions)."""
+    per_word = counts_bench.DIFF_OPS + counts_bench.EQUAL_OPS
+    assert per_word == 9
+    for windows, words in ((8, {1: 2, 2: 4}), (9, {1: 3, 2: 5}),
+                           (1, {1: 1, 2: 1}), (0, {1: 0, 2: 0})):
+        length = 5
+        valid = windows + length - 1  # window starts 0 .. windows - 1
+        ms, by = counts_bench.a_bound(0, 0, valid, length, width)
+        assert (ms, by) == bench.bound(0, 9 * words[width])
+    # at the 512 MiB chunk both widths are bound by the bytes
+    chunk, te = counts_bench.CHUNK_BYTES, counts_bench.TE
+    n_tiles = chunk // (te * width)
+    bytes_ = (n_tiles + 1) * te * width
+    ms, by = counts_bench.a_bound(bytes_, n_tiles, n_tiles * te - 1234, 5,
+                                  width)
+    assert by == "bytes" and ms == pytest.approx(
+        (bytes_ + 4 * n_tiles) / 3.35e12 * 1e3)
+
+
+def test_counts_bench_regimes():
+    """The regimes without a card, on a CPU buffer of the bench's size: A
+    at u8 (main and bench tiles) and u16, C at K = 3, 8 and 16, D at u8,
+    u16 and on a u8 copy 1 byte past a 16-byte boundary, each bound by
+    bytes but C's, and D's bounds those of A at its width."""
+    words = torch.zeros(counts_bench.WORDS_BYTES // 4, dtype=torch.int32)
+    rows = counts_bench.regimes(words)
+    assert [(r["kernel"], r.get("width"), r.get("offset"),
+             r.get("k")) for r, _, _ in rows] == [
+        ("A", 1, None, None), ("A", 1, None, None), ("A", 2, None, None),
+        ("C", None, None, 3), ("C", None, None, 8), ("C", None, None, 16),
+        ("D", 1, 0, None), ("D", 2, 0, None), ("D", 1, 1, None)]
+    assert [r["tile_elems"] for r, _, _ in rows] == [
+        counts_bench.TE, 8192] + [counts_bench.TE] * 7
+    for r, _, _ in rows:
+        assert r["bound_by"] == ("operations" if r["kernel"] == "C"
+                                 else "bytes")
+    a8, a16 = rows[0][0], rows[2][0]
+    d8, d16, d8_off = (r for r, _, _ in rows[6:])
+    assert d8["bound_ms"] == d8_off["bound_ms"] == a8["bound_ms"]
+    assert d16["bound_ms"] == a16["bound_ms"] > a8["bound_ms"]
+
+
+@pytest.mark.parametrize("dtype,offsets", [
+    (torch.uint8, range(16)), (torch.uint16, range(0, 16, 2))])
+def test_counts_bench_misaligned_copy(dtype, offsets):
+    """A copy that starts each offset past a 16-byte boundary holds the same
+    elements, in the same dtype, on a fresh allocation."""
+    elems = torch.arange(1001, dtype=torch.int32).to(dtype)
+    for offset in offsets:
+        got = counts_bench.misaligned_copy(elems, offset)
+        assert got.data_ptr() % 16 == offset
+        assert got.dtype == dtype and torch.equal(got, elems)
+        assert got.data_ptr() != elems.data_ptr()
+
+
+@pytest.mark.parametrize("older", [False, True])
+def test_counts_bench_binds_an_older_kernel_d(tmp_path, older):
+    """``--against`` a checkout whose kernel D still takes the largest check
+    shift: its entry point gains that int before the limit, and ``count_d``
+    passes it; a current one keeps this checkout's signature."""
+    from types import SimpleNamespace
+
+    from monkey_moore_tpu_torch.ops import _build
+
+    sig = list(_build._SIGNATURES["mm_tile_counts_elems"])
+    lib = SimpleNamespace(mm_tile_counts_elems=SimpleNamespace(argtypes=sig))
+    src = tmp_path / "tile_counts_elems.cu"
+    src.write_text("extern \"C\" int mm_tile_counts_elems(const void* data, "
+                   + ("int max_shift, " if older else "")
+                   + "int64_t last_start);\n")
+    counts_bench._bind_older_d(lib, src)
+    got = lib.mm_tile_counts_elems.argtypes
+    if older:
+        assert got == sig[:6] + [ctypes.c_int] + sig[6:] and lib.d_max_shift
+    else:
+        assert got == sig and not hasattr(lib, "d_max_shift")
+    counts_bench._bind_older_d(lib, tmp_path / "missing.cu")
+    assert lib.mm_tile_counts_elems.argtypes == got
 
 
 @pytest.mark.parametrize("k", [1, 3, 8, 16])

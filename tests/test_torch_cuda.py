@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from monkey_moore_tpu_torch.config import Endianness, SearchConfig
+from monkey_moore_tpu_torch.counts_bench import misaligned_copy
 from monkey_moore_tpu_torch.ops import scan_cuda
 from monkey_moore_tpu_torch.ops.host import prefilter_checks, wordcmp_run
 from monkey_moore_tpu_torch.pattern import compile_pattern
@@ -28,7 +29,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _planted_words(rng, pat, n_tiles, tile_elems, n_valid, plants):
+def _planted_elems(rng, pat, n_tiles, tile_elems, n_valid, plants):
+    """``n_tiles + 1`` tiles of the pattern's elements: seeded random up to
+    ``n_valid``, zero past it, the keyword (+3 i) at plant i."""
     width = np.dtype(pat.dtype).itemsize
     mod = 1 << (8 * width)
     arr = np.zeros((n_tiles + 1) * tile_elems, dtype=pat.dtype)
@@ -36,6 +39,11 @@ def _planted_words(rng, pat, n_tiles, tile_elems, n_valid, plants):
     kw = np.array(pat.keyword, dtype=np.int64)
     for i, pos in enumerate(plants):
         arr[pos : pos + pat.length] = ((kw + 3 * i) % mod).astype(pat.dtype)
+    return arr
+
+
+def _planted_words(rng, pat, n_tiles, tile_elems, n_valid, plants):
+    arr = _planted_elems(rng, pat, n_tiles, tile_elems, n_valid, plants)
     return torch.from_numpy(arr.reshape(-1).view("<i4").copy())
 
 
@@ -374,6 +382,26 @@ def _words_at(arr, offset_words=0, device="cpu"):
         offset_words : offset_words + len(words)]
 
 
+def _elems_at(arr, offset=0, device="cpu"):
+    """*arr* as a u8 or u16 tensor on *device* that starts ``offset`` bytes
+    past a 16-byte boundary (``counts_bench.misaligned_copy``)."""
+    t = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy()).to(device)
+    t = t.view(torch.uint16) if arr.dtype == np.uint16 else t
+    return misaligned_copy(t, offset)
+
+
+def _counts(kernel, arr, checks, offset, device, **args):
+    """Kernel A on *arr*'s packed words or kernel D on its elements (the
+    plain version on the CPU), ``offset`` bytes into a longer buffer."""
+    if kernel == "A":
+        assert offset % 4 == 0
+        return scan_cuda.tile_counts(
+            _words_at(arr, offset // 4, device), checks.to(device),
+            width=arr.dtype.itemsize, **args)
+    return scan_cuda.tile_counts_elems(_elems_at(arr, offset, device),
+                                       checks.to(device), **args)
+
+
 def _checks(pairs, exps):
     table = np.zeros((3, len(pairs)), dtype=np.int64)
     table[0], table[1] = zip(*pairs)
@@ -381,12 +409,14 @@ def _checks(pairs, exps):
     return torch.tensor(table, dtype=torch.int32)
 
 
+@pytest.mark.parametrize("kernel", ["A", "D"])
 @pytest.mark.parametrize("width", [1, 2])
-def test_tile_counts_every_shift_offset(cuda, width):
-    """Kernel A at check shifts of every byte offset mod 4 and across the
-    16-byte group edge (cur 0-20 against prev 0, cur - 1 and 17), one and
-    two checks, with windows planted to match, against the plain
-    version."""
+def test_tile_counts_every_shift_offset(cuda, width, kernel):
+    """Kernels A and D at check shifts of every byte offset mod 4 and
+    across the 16-byte group edge (cur 0-20 against prev 0, cur - 1 and
+    17), one and two checks, with windows planted to match, against the
+    plain version; D on elements that start inside a word (1 or 2 bytes
+    past a 16-byte boundary)."""
     rng = np.random.default_rng(11)
     dtype = np.uint8 if width == 1 else np.uint16
     mod = 1 << (8 * width)
@@ -403,73 +433,123 @@ def test_tile_counts_every_shift_offset(cuda, width):
                 for e in rng.integers(0, n_tiles * te - length, 12):
                     for (c, p), x in zip(pairs, exps):
                         arr[e + c] = (int(arr[e + p]) + x) % mod
-                words = _words_at(arr)
                 checks = _checks(pairs, exps)
-                args = dict(width=width, tile_elems=te, length=length,
+                args = dict(tile_elems=te, length=length,
                             valid_count=n_tiles * te - 5)
-                want = scan_cuda.tile_counts(words, checks, **args)
-                got = scan_cuda.tile_counts(words.to(cuda), checks.to(cuda),
-                                            **args)
+                offset = 0 if kernel == "A" else width
+                want = _counts(kernel, arr, checks, offset, "cpu", **args)
+                got = _counts(kernel, arr, checks, offset, cuda, **args)
                 assert got.cpu().tolist() == want.tolist(), (pairs, exps)
                 if len(pairs) == 1:  # two checks may undo each other's plants
                     assert int(want.sum()) > 0
 
 
+@pytest.mark.parametrize("kernel,te,n_tiles,offsets", [
+    ("A", 4096, 6, (0, 1)),  # words 0 and 1 in
+    # elements 1 and 3 in; 81 tiles of 309, the longest shift: the last
+    # counted window is the buffer's last
+    ("D", 309, 80, (1, 3)),
+])
 @pytest.mark.parametrize("width", [1, 2])
-def test_tile_counts_long_keyword_every_check(cuda, width, monkeypatch):
+def test_tile_counts_long_keyword_every_check(cuda, width, kernel, te,
+                                              n_tiles, offsets, monkeypatch):
     """A 310-element keyword under ``MMTPU_PREFILTER_CHECKS=0``: 309
-    checks, shifts past the staged overhang, read from device memory."""
+    checks, shifts past the staged overhang, read from device memory.
+    Kernel A with the limit 3 short of the counted tiles; kernel D on a
+    buffer that starts inside a word and whose byte length is not a
+    multiple of 4, with the limit at the buffer's end and a plant at its
+    last window, so that the reads of the last counted window reach the
+    buffer's last byte."""
     monkeypatch.setenv("MMTPU_PREFILTER_CHECKS", "0")
     rng = np.random.default_rng(12)
     word = "".join(chr(97 + (i * 7 + width) % 26) for i in range(310))
     pat = compile_pattern(word, dtype=np.uint8 if width == 1 else np.uint16)
     checks = scan_cuda.prefilter_operand(pat, "cpu")
     assert checks.shape == (3, 309)
-    te, n_tiles = 4096, 6
-    valid = n_tiles * te - 3
-    plants = [5, te - 100, 3 * te + 1, valid - pat.length]
-    for offset in (0, 1):
-        words = _planted_words(rng, pat, n_tiles, te, valid, plants)
-        words = _words_at(words.numpy(), offset)
-        args = dict(width=width, tile_elems=te, length=pat.length,
-                    valid_count=valid)
-        want = scan_cuda.tile_counts(words, checks, **args)
-        got = scan_cuda.tile_counts(words.to(cuda), checks.to(cuda), **args)
+    valid = n_tiles * te - 3 if kernel == "A" else (n_tiles + 1) * te
+    plants = [5, 2 * te - 100, 3 * te + 1, valid - pat.length]
+    assert plants[-1] < n_tiles * te  # counted
+    for offset in offsets:
+        arr = _planted_elems(rng, pat, n_tiles, te, valid, plants)
+        args = dict(tile_elems=te, length=pat.length, valid_count=valid)
+        shift = 4 * offset if kernel == "A" else width * offset  # bytes
+        want = _counts(kernel, arr, checks, shift, "cpu", **args)
+        got = _counts(kernel, arr, checks, shift, cuda, **args)
         assert got.cpu().tolist() == want.tolist()
         assert int(want.sum()) >= len(plants)
 
 
-@pytest.mark.parametrize("offset", [0, 1, 3])
-@pytest.mark.parametrize("tile_elems", [8, 12, 8192, 262_144])
+@pytest.mark.parametrize("kernel,offset", [
+    ("A", 0), ("A", 4), ("A", 12), ("D", 0), ("D", 2), ("D", 6),
+    ("D", 14)])
+@pytest.mark.parametrize("tile_elems", [8, 12, 1001, 8192, 262_144])
 @pytest.mark.parametrize("kw,wc,width", [("abcde", 0, 1), ("ab*de", "*", 1),
                                          ("abcde", 0, 2), ("?bcde", "?", 2)])
-def test_tile_counts_tile_sizes(cuda, kw, wc, width, tile_elems, offset):
-    """Kernel A at tiles of 8, 12, 8192 and 262144 elements (several tiles
-    to a block's unit, one tile to a unit), on words 0, 4 and 12 bytes past
-    a 16-byte boundary."""
+def test_tile_counts_tile_sizes(cuda, kw, wc, width, tile_elems, kernel,
+                                offset):
+    """Kernels A and D at tiles of 8, 12, 1001, 8192 and 262144 elements
+    (several tiles to a block's unit, one tile to a unit), on buffers
+    *offset* bytes past a 16-byte boundary: A's words 0, 4 and 12 bytes
+    in, D's elements also 2, 6 and 14 bytes in (inside a word).  D's
+    1001-element tiles end the buffer inside a word; A's buffer has a
+    whole number of words."""
     rng = np.random.default_rng(tile_elems + offset)
     pat = compile_pattern(kw, wc, dtype=np.uint8 if width == 1 else np.uint16)
     te = tile_elems
     n_tiles = max(3, min(4096, (4 << 20) // (te * width)))
+    while kernel == "A" and (n_tiles + 1) * te * width % 4:
+        n_tiles += 1
     valid = n_tiles * te - 3
     plants = [0, te + 1, (n_tiles // 2) * te - 2, valid - pat.length]
-    words = _planted_words(rng, pat, n_tiles, te, valid, plants)
-    words = _words_at(words.numpy(), offset)
+    arr = _planted_elems(rng, pat, n_tiles, te, valid, plants)
     checks = scan_cuda.prefilter_operand(pat, "cpu")
-    args = dict(width=width, tile_elems=te, length=pat.length,
-                valid_count=valid)
-    want = scan_cuda.tile_counts(words, checks, **args)
-    got = scan_cuda.tile_counts(words.to(cuda), checks.to(cuda), **args)
+    args = dict(tile_elems=te, length=pat.length, valid_count=valid)
+    want = _counts(kernel, arr, checks, offset, "cpu", **args)
+    got = _counts(kernel, arr, checks, offset, cuda, **args)
     assert got.cpu().tolist() == want.tolist()
     assert int(want.sum()) >= len(plants)
+
+
+@pytest.mark.parametrize("n_tiles", [5, 6])
+@pytest.mark.parametrize("tile_elems", [1001, 4096])
+@pytest.mark.parametrize("width,offset", [(1, o) for o in range(16)]
+                         + [(2, o) for o in range(0, 16, 2)])
+def test_tile_counts_elems_every_offset(cuda, width, offset, tile_elems,
+                                        n_tiles):
+    """Kernel D on u8 elements at every start 0-15 bytes past a 16-byte
+    boundary and on u16 elements at every even one, with buffers whose
+    byte length is a multiple of 4 and ones whose length is not (u8 tiles
+    of 1001 elements, an odd number of u16 tiles of 1001), against its
+    plain version and, on the same bytes where they are whole aligned
+    words, against kernel A."""
+    rng = np.random.default_rng(100 * offset + tile_elems + n_tiles)
+    dtype = np.uint8 if width == 1 else np.uint16
+    pat = compile_pattern("ab*de", "*", dtype=dtype)
+    te = tile_elems
+    valid = n_tiles * te - 2
+    plants = [0, te - 2, 3 * te + 7, valid - pat.length]
+    arr = _planted_elems(rng, pat, n_tiles, te, valid, plants)
+    checks = scan_cuda.prefilter_operand(pat, "cpu")
+    args = dict(tile_elems=te, length=pat.length, valid_count=valid)
+    scan_cuda.reset_launch_counts()
+    got = _counts("D", arr, checks, offset, cuda, **args)
+    torch.cuda.synchronize()
+    assert scan_cuda.launch_counts["tile_counts_elems"] == 1
+    want = _counts("D", arr, checks, offset, "cpu", **args)
+    assert got.cpu().tolist() == want.tolist()
+    assert int(want.sum()) >= len(plants)
+    if arr.nbytes % 4 == 0 and offset % 4 == 0:
+        got_a = _counts("A", arr, checks, offset, cuda, **args)
+        assert got_a.cpu().tolist() == want.tolist()
 
 
 @pytest.mark.parametrize("width", [1, 2])
 def test_counts_valid_count_at_a_tile_end(cuda, width):
     """``valid_count`` at each of the last 32 positions of a tile, on data
     where every window matches (zeros, a keyword of equal letters) and on
-    random data: kernel A, and kernel C with two keywords of different
-    lengths, against their plain versions."""
+    random data: kernel A, kernel D (on the same elements, starting inside
+    a word), and kernel C with two keywords of different lengths, against
+    their plain versions."""
     rng = np.random.default_rng(13)
     dtype = np.uint8 if width == 1 else np.uint16
     mod = 1 << (8 * width)
@@ -480,6 +560,7 @@ def test_counts_valid_count_at_a_tile_end(cuda, width):
                 rng.integers(0, mod, (n_tiles + 1) * te).astype(dtype)):
         words = _words_at(arr)
         gpu = words.to(cuda)
+        elems = _elems_at(arr, width, cuda)
         checks = scan_cuda.prefilter_operand(same, "cpu")
         for valid in range(3 * te - 32, 3 * te):
             args = dict(width=width, tile_elems=te, length=same.length,
@@ -487,6 +568,12 @@ def test_counts_valid_count_at_a_tile_end(cuda, width):
             want = scan_cuda.tile_counts(words, checks, **args)
             got = scan_cuda.tile_counts(gpu, checks.to(cuda), **args)
             assert got.cpu().tolist() == want.tolist(), valid
+            del args["width"]
+            want_d = scan_cuda.tile_counts_elems(_elems_at(arr), checks,
+                                                 **args)
+            got_d = scan_cuda.tile_counts_elems(elems, checks.to(cuda),
+                                                **args)
+            assert got_d.cpu().tolist() == want_d.tolist() == want.tolist()
             table, last_starts = scan_cuda.multi_operand(pats, valid, "cpu")
             cargs = dict(width=width, tile_elems=te)
             want_c = scan_cuda.tile_counts_multi(words, table, last_starts,

@@ -96,6 +96,56 @@ def test_tile_counts_elems_equal(kw, wc, dtype):
     assert want[0] >= 2 and want[2] >= 2
 
 
+#: kernel D's operand as a view into a larger tensor: u8 elements 1-15
+#: bytes in, u16 elements 2-14 (even) bytes in
+VIEW_OFFSETS = ([(np.uint8, o) for o in range(1, 16)]
+                + [(np.uint16, o) for o in range(2, 16, 2)])
+
+
+@pytest.mark.parametrize("tile_elems", [1001, 4096])
+@pytest.mark.parametrize("dtype,offset", VIEW_OFFSETS)
+def test_tile_counts_elems_views_equal(dtype, offset, tile_elems):
+    """Kernel D's plain version, through the wrapper on CPU tensors, on a
+    view *offset* bytes into a larger tensor, against
+    ``scan_jnp.tile_counts_xla`` on the same elements: 7 tiles of 1001
+    elements (a byte length that is not a multiple of 4, u8 and u16) and
+    of 4096, a whole number of the Pallas kernel's 32-row x 128-lane
+    tiles, where ``_tile_counts_call`` in interpret mode is held to them
+    too."""
+    kw, wc = ("abcde", 0) if dtype == np.uint8 else ("ab*de", "*")
+    pat = compile_pattern(kw, wc, dtype=dtype)
+    L, te, n_tiles = pat.length, tile_elems, 6
+    n = n_tiles * te - 3 - offset  # a ragged limit, a different one a view
+    mod = 1 << (8 * np.dtype(dtype).itemsize)
+    arr = np.zeros((n_tiles + 1) * te, dtype=dtype)
+    arr[:n] = np.random.default_rng(offset).integers(0, mod, n)
+    kwv = ((np.array(pat.keyword, dtype=np.int64) + 3) % mod).astype(dtype)
+    plants = [offset, te - 2, 4 * te + 1, n - L]  # start, straddle, last
+    for pos in plants:
+        arr[pos : pos + L] = kwv
+    raw = np.zeros(arr.nbytes + offset + 16, dtype=np.uint8)
+    raw[offset : offset + arr.nbytes] = arr.view(np.uint8)
+    view = torch.from_numpy(raw)[offset : offset + arr.nbytes]
+    elems = view.view(torch.uint16) if dtype == np.uint16 else view
+    assert elems.storage_offset() * elems.element_size() == offset
+    pairs, exp = prefilter_checks(pat)
+    xla = np.asarray(tile_counts_xla(
+        jnp.asarray(arr), jnp.int32(n), jnp.asarray(exp), pairs=pairs,
+        length=L, tile_elems=te,
+    ))
+    checks = scan_cuda.prefilter_operand(carry_over(pat), "cpu")
+    got = scan_cuda.tile_counts_elems(elems, checks, tile_elems=te,
+                                      length=L, valid_count=n)
+    assert got.tolist() == xla.tolist()
+    assert int(got.sum()) >= len(plants)
+    if te % (32 * LANES) == 0:
+        want = np.asarray(tile_counts_pallas(
+            pat, jnp.asarray(arr).reshape(-1, LANES), n,
+            tile_rows=te // LANES, interpret=True, mode="native",
+        ))
+        assert got.tolist() == want.tolist()
+
+
 def test_tile_counts_elems_rejects_bad_operands():
     pat = carry_over(compile_pattern("abcde"))
     checks = scan_cuda.prefilter_operand(pat, "cpu")
