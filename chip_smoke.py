@@ -52,7 +52,29 @@
    step, pure-load kernel I, counts kernel A at I's tiles) and its JSON
    record is printed.  Kernel I must equal its plain version and
    ``torch.sum`` on the whole corpus, and no share of the published
-   bandwidth may read over 105%.
+   bandwidth may read over 105%;
+9. drives the user's entry points over phase 4's file on the card: the
+   CLI in-process (``search`` of phase 4's 8-bit and 16-bit BE keywords,
+   first and repeat, equal to phase 4's resident results through kernels
+   A and B and never D or E; ``multi-search`` of phase 5's 8-bit batch,
+   equal to phase 5 through kernel C and never A; ``value-scan`` of the
+   8-bit plants' bytes, every plant found; ``export-tbl``, the file equal
+   to ``tables.build_table_data`` of phase 4's first result), one
+   ``python -m monkey_moore_tpu_torch search`` in a subprocess (stdout
+   equal to the in-process run), a scripted ``Repl(device="cuda")``
+   session (two searches, the second on the same resident corpus, a
+   batch, a value scan, ``about`` naming the card) and an ``AsyncSearch``
+   aborted after its first chunk (ABORTED, no results) followed by one
+   equal to phase 4; it prints the walls of the first and repeat searches;
+10. runs the conformance gate on the card,
+   ``conformance.run_gate(trials=150, seed=424242, multi_trials=37,
+   device="cuda")``: no failed check, kernels A, B, D and E launched at
+   its odd geometries (64-byte blocks, 4 KiB chunks, odd 16-bit tails),
+   and its known-divergence count printed beside the JAX gate's 3 on that
+   seed.
+
+Phases 9 and 10 run after phase 7, while phase 4's file exists; phase 8
+runs last.
 
 Phase 3 also holds kernel I against its plain version and ``torch.sum`` on
 the 512 MiB chunk buffer; phase 8 times it on the first 4 GiB as well
@@ -61,8 +83,8 @@ counts kernels A, C and D, the gathers, and kernel I beside ``torch.sum``)
 are timed by ``bench.back_to_back_ms``: many launches between one pair of
 CUDA events, enqueued while a spin kernel holds the stream.  Each path runs with the
 launch counts set to 0 just before it and read just after, and every
-gather launch on a path must have 16-byte aligned pointers and tile size
-(the bulk route).  The last line is ``{"ok": true,
+gather launch on phases 4-9 must have 16-byte aligned pointers and tile
+size (the bulk route; the gate's tiny chunks may take the edge copy).  The last line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's ``nvidia-smi`` name
 and power limit, and before that a JSON object with each kernel's launches
 on its paths, its largest difference from the plain version, its time, its
@@ -684,7 +706,8 @@ def slice_phase(torch, workdir: Path):
 def batch_phase(torch, path: Path, batches):
     """Phase 5: the keyword batches through ``MultiSearcher``, each run
     twice (the first search uploads the file), then every keyword through
-    the engine alone for comparison."""
+    the engine alone for comparison.  Returns the path's launch counts and
+    each batch's results, {name: [[(offset, values map)] per keyword]}."""
     from monkey_moore_tpu_torch.corpus import clear_corpus_cache
     from monkey_moore_tpu_torch.engine import SearchEngine
     from monkey_moore_tpu_torch.multi import MultiSearcher
@@ -733,7 +756,9 @@ def batch_phase(torch, path: Path, batches):
               f"repeat {times[1]:.3f} s; K single searches first "
               f"{sum(t for t, _ in single_times):.3f} s, repeat "
               f"{sum(t for _, t in single_times):.3f} s", flush=True)
-    return launches
+    return launches, {
+        name: [[(r.offset, r.values_map) for r in got] for got in results]
+        for name, (_, results, _) in batch_results.items()}
 
 
 def memory_phase(torch, path: Path, searches):
@@ -846,6 +871,244 @@ def stream_phase(torch, path: Path, searches, resident):
               f"stream {name}: results differ from the resident search")
         print(f"phase 7 stream {name!r}: {len(results)} results (= resident "
               f"search) in {secs:.3f} s | {stats.summary()}", flush=True)
+    return launches
+
+def run_cli(argv):
+    """(return code, stdout, stderr, wall s) of one in-process call of the
+    port's CLI."""
+    import contextlib
+    import io
+
+    from monkey_moore_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli.main([str(a) for a in argv])
+        except SystemExit as exc:
+            rc = exc.code
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def result_lines(found, width, endianness) -> str:
+    """The CLI's result lines for [(offset, values map)]."""
+    from monkey_moore_tpu_torch.tui import format_values
+
+    return "".join(f"0x{off:X}\t{format_values(m, width, endianness)}\n"
+                   for off, m in found)
+
+
+def frontend_phase(torch, workdir: Path, path: Path, searches, resident,
+                   batches, batch_found):
+    """Phase 9: the user's entry points on the card over phase 4's file.
+    The CLI in-process: ``search`` of phase 4's 8-bit and 16-bit BE
+    keywords, each twice (output equal to phase 4's resident results,
+    kernels A and B, never D or E), ``multi-search`` of phase 5's 8-bit
+    batch (equal to phase 5, kernel C, never A), ``value-scan`` of the
+    8-bit plant's byte values (every plant found) and ``export-tbl`` (the
+    file equal to ``tables`` of phase 4's first result); one ``python -m
+    monkey_moore_tpu_torch search`` in a subprocess (stdout equal to the
+    in-process run); a ``Repl(device="cuda")`` session (two single
+    searches, the second on the same resident corpus, a batch, a value
+    scan, ``about`` naming the card); and an ``AsyncSearch`` aborted
+    after its first chunk, then one that must equal phase 4.  Returns the
+    launch counts of the in-process steps."""
+    import io
+    import os
+    import shlex
+
+    from monkey_moore_tpu_torch.async_search import (
+        AsyncSearch,
+        SearchEvent,
+        step_message,
+    )
+    from monkey_moore_tpu_torch.config import (
+        Endianness,
+        SearchConfig,
+        SearchStep,
+    )
+    from monkey_moore_tpu_torch.corpus import _cache, clear_corpus_cache
+    from monkey_moore_tpu_torch.ops import scan_cuda
+    from monkey_moore_tpu_torch.repl import Repl
+    from monkey_moore_tpu_torch.tables import build_table_data, format_tbl
+
+    total: dict = {}
+
+    def read(step):
+        launches = path_launches(scan_cuda, f"phase 9 {step}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        scan_cuda.reset_launch_counts()
+        print(f"phase 9 launches of {step}: {launches}", flush=True)
+        return launches
+
+    walls = {}
+    little = Endianness.LITTLE
+    clear_corpus_cache()  # the first search uploads the file
+    scan_cuda.reset_launch_counts()
+    outputs = {}
+    for name, extra in (("8-bit", ["monkey"]),
+                        ("16-bit BE", ["castle", "--width", "16",
+                                       "--endian", "big"])):
+        kwargs, _ = searches[name]
+        want = result_lines(resident[name], kwargs.get("element_width", 1),
+                            kwargs.get("endianness", little))
+        for attempt in ("first", "repeat"):
+            rc, out, err, wall = run_cli(["search", path, *extra,
+                                          "--no-progress"])
+            check(rc == 0 and out == want
+                  and err == f"{len(resident[name])} result(s)\n",
+                  f"phase 9 cli search {name!r} ({attempt}): rc {rc}, "
+                  f"{err!r}, output differs from phase 4's")
+            walls[f"cli search {name} {attempt}"] = wall
+        outputs[name] = out
+    launches = read("cli search")
+    check(launches["tile_counts"] > 0 and launches["gather_tiles"] > 0
+          and launches["tile_counts_elems"] == 0
+          and launches["gather_tiles_block"] == 0,
+          f"cli search: not kernels A and B alone: {launches}")
+
+    words = [(spec if isinstance(spec, str) else spec["keyword"])
+             .replace("*", "?") for spec, _ in batches["8-bit batch"][1]]
+    rc, out, err, wall = run_cli(["multi-search", path, *words,
+                                  "--wildcard", "?", "--no-progress"])
+    want = "".join(f"# {kw}\n" + result_lines(found, 1, little)
+                   for kw, found in zip(words, batch_found["8-bit batch"]))
+    check(rc == 0 and out == want,
+          f"phase 9 cli multi-search: rc {rc}, {err!r}, output differs "
+          "from phase 5's")
+    walls["cli multi-search K=8"] = wall
+    launches = read("cli multi-search")
+    check(launches["tile_counts_multi"] > 0 and launches["tile_counts"] == 0,
+          f"cli multi-search: not kernel C alone: {launches}")
+
+    planted8 = searches["8-bit"][1]
+    values = [ord(c) + 3 for c in "monkey"]  # the 8-bit plants' bytes
+    rc, out, err, wall = run_cli(["value-scan", path, *values,
+                                  "--no-progress"])
+    found = [int(line.split("\t")[0], 16) for line in out.splitlines()]
+    check(rc == 0 and set(planted8) <= set(found),
+          f"phase 9 cli value-scan: rc {rc}, {err!r}, plants "
+          f"{sorted(set(planted8) - set(found))} not found")
+    walls["cli value-scan"] = wall
+    tbl = workdir / "monkey.tbl"
+    rc, out, err, wall = run_cli(["export-tbl", path, "monkey", "-o", tbl,
+                                  "--no-progress"])
+    want_tbl = format_tbl(build_table_data(resident["8-bit"][0][1], 1,
+                                           little)).encode("utf-8")
+    check(rc == 0 and tbl.read_bytes() == want_tbl,
+          f"phase 9 cli export-tbl: rc {rc}, {err!r}, table differs")
+    launches = read("cli value-scan and export-tbl")
+    check(launches["tile_counts"] > 0 and launches["tile_counts_elems"] == 0,
+          f"cli value-scan / export-tbl: not kernel A: {launches}")
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "monkey_moore_tpu_torch", "search", str(path),
+         "monkey", "--no-progress"], cwd=root, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(root)))
+    walls["python -m search (process)"] = time.perf_counter() - t0
+    check(proc.returncode == 0 and proc.stdout == outputs["8-bit"],
+          f"phase 9 python -m: rc {proc.returncode}, output differs from "
+          f"the in-process run: {proc.stderr[-2000:]}")
+
+    clear_corpus_cache()  # the session's first search uploads the file
+    text = io.StringIO()
+    repl = Repl(out=text, device="cuda")
+    repl.execute(f"open {shlex.quote(str(path))}")
+    for attempt in ("first", "repeat"):
+        t0 = time.perf_counter()
+        repl.execute("search monkey")
+        walls[f"repl search 8-bit {attempt}"] = time.perf_counter() - t0
+        check([(r.offset, r.values_map) for r in repl.last_results]
+              == resident["8-bit"],
+              f"phase 9 repl search ({attempt}) differs from phase 4's")
+        if attempt == "first":
+            check(len(_cache) == 1, "phase 9 repl: no resident corpus")
+            corpus = next(iter(_cache.values()))
+    check(len(_cache) == 1 and next(iter(_cache.values())) is corpus,
+          "phase 9 repl: the repeat search did not reuse the corpus")
+    t0 = time.perf_counter()
+    repl.execute("search monkey sword potion")
+    walls["repl batch K=3"] = time.perf_counter() - t0
+    check([(r.offset, r.values_map) for r in repl.last_results]
+          == [hit for i in (0, 2, 4) for hit in batch_found["8-bit batch"][i]],
+          "phase 9 repl batch differs from phase 5's")
+    repl.execute("value " + " ".join(map(str, values)))
+    check(set(planted8) <= {r.offset for r in repl.last_results},
+          "phase 9 repl value scan: plants not found")
+    repl.execute("about")
+    check(torch.cuda.get_device_name(0) in text.getvalue(),
+          "phase 9 repl about does not name the card")
+    read("repl")
+
+    clear_corpus_cache()  # the aborted search uploads, then stops
+    holder = {}
+    searching = step_message(SearchStep.SEARCHING)
+
+    def on_update(msg, pct):
+        if msg == searching and 0 < pct < 100:  # past the first chunk
+            holder["search"].abort()
+
+    holder["search"] = aborted = AsyncSearch(
+        SearchConfig(file_path=path, keyword="monkey"), on_update=on_update,
+        device="cuda")
+    t0 = time.perf_counter()
+    aborted.start()
+    check(aborted.join(timeout=600), "phase 9: the aborted search hung")
+    walls["async aborted"] = time.perf_counter() - t0
+    check(aborted.outcome is SearchEvent.ABORTED and aborted.results == [],
+          f"phase 9 async: {aborted.outcome} {aborted.error}, not ABORTED")
+    after = AsyncSearch(SearchConfig(file_path=path, keyword="monkey"),
+                        device="cuda").start()
+    check(after.join(timeout=600) and after.outcome is SearchEvent.COMPLETED
+          and [(r.offset, r.values_map) for r in after.results]
+          == resident["8-bit"],
+          f"phase 9 async after the abort: {after.outcome} {after.error}")
+    read("async")
+    print("phase 9 walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()), flush=True)
+    print(f"phase 9 frontends: cli search/multi-search/value-scan/export-tbl "
+          f"equal to phases 4-5, python -m equal, repl and aborted "
+          f"AsyncSearch checked; launches {total}", flush=True)
+    return total
+
+
+#: phase 10's gate: the JAX gate's seed and trial counts of ``VERDICT.md``,
+#: which found 3 known divergences there
+GATE_SEED, GATE_TRIALS, GATE_MULTI, GATE_JAX_KNOWN = 424242, 150, 37, 3
+
+
+def gate_phase(torch):
+    """Phase 10: the conformance gate on the card,
+    ``conformance.run_gate(150, 424242, 37, "cuda")``: no failed check, and
+    kernels A, B, D and E launched at its odd geometries (64-byte blocks,
+    4 KiB chunks, odd 16-bit tails).  Returns its launch counts."""
+    from monkey_moore_tpu_torch.conformance import run_gate, summary_line
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    scan_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_gate(GATE_TRIALS, GATE_SEED, GATE_MULTI, device="cuda")
+    secs = time.perf_counter() - t0
+    launches = dict(scan_cuda.launch_counts)
+    aligned = dict(scan_cuda.aligned_launch_counts)
+    print(f"phase 10 gate, seed {GATE_SEED}, {GATE_TRIALS} trials and "
+          f"{GATE_MULTI} batch trials on the card in {secs:.1f} s: "
+          f"{summary_line(result)}; the JAX gate's known divergences on this "
+          f"seed: {GATE_JAX_KNOWN}", flush=True)
+    for failure in result["failures"]:
+        print("phase 10 FAIL:", failure, flush=True)
+    check(result["failed"] == 0, f"gate: {result['failed']} failed checks")
+    check(all(launches[k] > 0 for k in ("tile_counts", "gather_tiles",
+                                        "tile_counts_elems",
+                                        "gather_tiles_block")),
+          f"gate: kernels A, B, D and E not all launched: {launches}")
+    print(f"phase 10 launches on the gate path: {launches}; gathers on the "
+          f"bulk route: {aligned}", flush=True)
     return launches
 
 
@@ -1009,9 +1272,12 @@ def main() -> int:
         launches = {}
         launches["search"], path, searches, resident, batches = slice_phase(
             torch, Path(tmp))
-        launches["batch"] = batch_phase(torch, path, batches)
+        launches["batch"], batch_found = batch_phase(torch, path, batches)
         launches["memory"] = memory_phase(torch, path, searches)
         launches["stream"] = stream_phase(torch, path, searches, resident)
+        launches["cli"] = frontend_phase(torch, Path(tmp), path, searches,
+                                         resident, batches, batch_found)
+        launches["gate"] = gate_phase(torch)
     launches["bench"], load_row = bench_phase(torch, err_i)
     kernels.append(load_row)
     for row in kernels:

@@ -1,11 +1,19 @@
 """monkey_moore_tpu_torch — the relative-search engine on PyTorch and CUDA.
 
-A port of ``monkey_moore_tpu``'s single-device search paths to one NVIDIA
-Hopper card.  The JAX package stays the reference; this package imports
-nothing of it and keeps its own copies of what it needs (configuration,
-pattern compiler, oracle, recovery, suppression, host scanner and C++
-walker, previews, stats), under the same module names:
+A port of ``monkey_moore_tpu``'s single-device search paths and its
+frontends to one NVIDIA Hopper card.  The JAX package stays the reference;
+this package imports nothing of it and keeps its own copies of what it
+needs (configuration, pattern compiler, oracle, recovery, suppression, host
+scanner and C++ walker, previews, stats, validation, tables, sequences,
+preferences, translations), under the same module names:
 
+- ``cli``      — ``python -m monkey_moore_tpu_torch search|multi-search|
+  value-scan|export-tbl|sequences|bench|repl|tui``, the JAX CLI's commands
+  and output; ``--cpu`` runs on the kernels' plain versions;
+- ``repl``, ``tui``, ``async_search`` — the interactive frontends and the
+  off-thread search (``AsyncSearch(config, device="cuda")``);
+- ``conformance`` — the conformance gate on the port
+  (``python -m monkey_moore_tpu_torch.conformance``);
 - ``engine``   — ``SearchEngine(config, device="cuda")``, the file search
   entry point (resident files, and files streamed chunk by chunk);
 - ``multi``    — ``MultiSearcher(path, device="cuda")``, keyword batches;
@@ -24,7 +32,9 @@ walker, previews, stats), under the same module names:
   configuration, pattern and result objects into the port's.  The port's
   entry points raise ``TypeError`` on a foreign one.
 
-It imports ``torch`` and never ``jax``.
+It imports ``torch`` and never ``jax``; ``AsyncSearch`` and
+``SearchEvent`` load on first use, so importing the package loads no
+torch.
 """
 
 from .carry import carry_over
@@ -35,6 +45,10 @@ from .config import (
     SearchResult,
     SearchStep,
 )
+from .oracle import OracleSearcher, oracle_search
+from .pattern import CompiledPattern, PatternError, SearchMode, compile_pattern
+
+__version__ = "0.5.0"
 
 __all__ = [
     "Endianness",
@@ -42,5 +56,22 @@ __all__ = [
     "SearchConfig",
     "SearchResult",
     "SearchStep",
+    "CompiledPattern",
+    "PatternError",
+    "SearchMode",
+    "compile_pattern",
+    "OracleSearcher",
+    "oracle_search",
+    "AsyncSearch",
+    "SearchEvent",
+    "__version__",
     "carry_over",
 ]
+
+
+def __getattr__(name):
+    if name in ("AsyncSearch", "SearchEvent"):
+        from . import async_search
+
+        return getattr(async_search, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

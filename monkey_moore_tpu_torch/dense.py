@@ -424,7 +424,12 @@ def extract_hot_tiles_device(
         0, arr_device.shape[0] - 1,
     )
     index = torch.from_numpy(idx).to(arr_device.device)
-    fetched = arr_device[index].cpu().numpy()
+    if arr_device.dtype == torch.uint16:
+        # CUDA has no uint16 indexing: gather the same bits as int16
+        fetched = arr_device.view(torch.int16)[index].cpu().numpy()
+        fetched = fetched.view(np.uint16)
+    else:
+        fetched = arr_device[index].cpu().numpy()
 
     all_offsets = []
     all_values = []

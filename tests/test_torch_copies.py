@@ -46,6 +46,7 @@ from monkey_moore_tpu_torch import pattern as tpattern
 from monkey_moore_tpu_torch import preview as tpreview
 from monkey_moore_tpu_torch import profiling as tprofiling
 from monkey_moore_tpu_torch import utils as tutils
+from monkey_moore_tpu_torch.async_search import AsyncSearch
 from monkey_moore_tpu_torch.corpus import ResidentCorpus
 from monkey_moore_tpu_torch.multi import MultiSearcher
 from monkey_moore_tpu_torch.ops import recover as trecover
@@ -501,6 +502,12 @@ def _jax_pattern():
 
 
 ENTRY_POINTS = {
+    "AsyncSearch": lambda p: AsyncSearch(
+        jconfig.SearchConfig(file_path=p, keyword="monkey"), device="cpu"),
+    "AsyncSearch-semantics": lambda p: AsyncSearch(
+        tconfig.SearchConfig(file_path=p, keyword="monkey",
+                             semantics=jconfig.MatchSemantics.ALL),
+        device="cpu"),
     "SearchEngine": lambda p: tengine.SearchEngine(
         jconfig.SearchConfig(file_path=p, keyword="monkey"), device="cpu"),
     "SearchEngine-endianness": lambda p: tengine.SearchEngine(
