@@ -66,15 +66,33 @@
    batch, a value scan, ``about`` naming the card) and an ``AsyncSearch``
    aborted after its first chunk (ABORTED, no results) followed by one
    equal to phase 4; it prints the walls of the first and repeat searches;
-10. runs the conformance gate on the card,
+10. runs the conformance gate's streaming pass on the card,
    ``conformance.run_gate(trials=150, seed=424242, multi_trials=37,
-   device="cuda")``: no failed check, kernels A, B, D and E launched at
-   its odd geometries (64-byte blocks, 4 KiB chunks, odd 16-bit tails),
-   and its known-divergence count printed beside the JAX gate's 3 on that
-   seed.
+   device="cuda", streaming=True)`` (the engine's streaming branch where
+   the JAX gate takes a mesh): no failed check, kernels A, B, D and E
+   launched at its odd geometries (64-byte blocks, 4 KiB chunks, odd
+   16-bit tails), and its known-divergence count printed beside the JAX
+   gate's 3 on that seed;
+11. drives the meshes and the multi-host search over phase 4's file:
+   (a) phase 4's three searches through ``SearchEngine`` with
+   ``devices=["cuda:0"] * 4`` (and with every card, where there are more
+   than one), first and repeat, each equal to phase 4's results with every
+   plant found, through kernels A and B only (never C, D or E), with the
+   mesh stats printed; then the 8-bit search with ``resident_bytes_limit=0``
+   (the chunked mesh step), equal again; (b) phase 5's 8-bit batch through
+   ``MultiSearcher(..., devices=["cuda:0"] * 4)``, equal to phase 5,
+   through kernel C and never A; (c) two worker processes on the card in a
+   gloo group on a free localhost port, each running ``run_distributed``
+   for phase 4's 8-bit keyword on ``cuda:0`` (the streaming branch,
+   kernels D and E) and on a mesh of two shards (the chunked mesh step,
+   kernels A and B), every result equal to phase 4's; (d) the gate's mesh
+   pass, ``run_gate(150, 424242, 37, "cuda")`` with ``[device] * n`` on
+   ``t % 3 == 2``: the JAX gate's summary, 547/550 with 3 known
+   divergences; (e) ``bench_scaling`` over the file at mesh sizes 1, 2
+   and 4 (on one card: the cost of sharding, not scaling).
 
-Phases 9 and 10 run after phase 7, while phase 4's file exists; phase 8
-runs last.
+Phases 9-11 run after phase 7, while phase 4's file exists; phase 8 runs
+last.
 
 Phase 3 also holds kernel I against its plain version and ``torch.sum`` on
 the 512 MiB chunk buffer; phase 8 times it on the first 4 GiB as well
@@ -1077,27 +1095,30 @@ def frontend_phase(torch, workdir: Path, path: Path, searches, resident,
     return total
 
 
-#: phase 10's gate: the JAX gate's seed and trial counts of ``VERDICT.md``,
-#: which found 3 known divergences there
+#: phases 10 and 11's gate: the JAX gate's seed and trial counts of
+#: ``VERDICT.md``, which found 3 known divergences there (547/550)
 GATE_SEED, GATE_TRIALS, GATE_MULTI, GATE_JAX_KNOWN = 424242, 150, 37, 3
+GATE_JAX_PASSED = 547
 
 
 def gate_phase(torch):
-    """Phase 10: the conformance gate on the card,
-    ``conformance.run_gate(150, 424242, 37, "cuda")``: no failed check, and
-    kernels A, B, D and E launched at its odd geometries (64-byte blocks,
-    4 KiB chunks, odd 16-bit tails).  Returns its launch counts."""
+    """Phase 10: the conformance gate's streaming pass on the card,
+    ``conformance.run_gate(150, 424242, 37, "cuda", streaming=True)``: no
+    failed check, and kernels A, B, D and E launched at its odd geometries
+    (64-byte blocks, 4 KiB chunks, odd 16-bit tails).  Returns its launch
+    counts."""
     from monkey_moore_tpu_torch.conformance import run_gate, summary_line
     from monkey_moore_tpu_torch.ops import scan_cuda
 
     scan_cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    result = run_gate(GATE_TRIALS, GATE_SEED, GATE_MULTI, device="cuda")
+    result = run_gate(GATE_TRIALS, GATE_SEED, GATE_MULTI, device="cuda",
+                      streaming=True)
     secs = time.perf_counter() - t0
     launches = dict(scan_cuda.launch_counts)
     aligned = dict(scan_cuda.aligned_launch_counts)
-    print(f"phase 10 gate, seed {GATE_SEED}, {GATE_TRIALS} trials and "
-          f"{GATE_MULTI} batch trials on the card in {secs:.1f} s: "
+    print(f"phase 10 gate (streaming pass), seed {GATE_SEED}, {GATE_TRIALS} "
+          f"trials and {GATE_MULTI} batch trials on the card in {secs:.1f} s: "
           f"{summary_line(result)}; the JAX gate's known divergences on this "
           f"seed: {GATE_JAX_KNOWN}", flush=True)
     for failure in result["failures"]:
@@ -1110,6 +1131,247 @@ def gate_phase(torch):
     print(f"phase 10 launches on the gate path: {launches}; gathers on the "
           f"bulk route: {aligned}", flush=True)
     return launches
+
+
+#: phase 11 (c)'s worker: joins the gloo group, runs ``run_distributed``
+#: for one keyword on ``cuda:0`` and on a two-shard mesh of it, and prints
+#: the results, stats, walls and launch counts of both as one JSON line
+MULTIHOST_WORKER = r"""
+import json, sys, time
+coord, pid, nproc, path, keyword = (sys.argv[1], int(sys.argv[2]),
+                                    int(sys.argv[3]), sys.argv[4],
+                                    sys.argv[5])
+import torch
+import torch.distributed as dist
+from monkey_moore_tpu_torch.config import SearchConfig
+from monkey_moore_tpu_torch.engine import SearchEngine
+from monkey_moore_tpu_torch.ops import scan_cuda
+from monkey_moore_tpu_torch.parallel.multihost import (
+    initialize_distributed, process_count)
+
+initialize_distributed(coord, nproc, pid)
+assert process_count() == nproc
+out = {}
+for mode, devices in (("device", None), ("mesh", ["cuda:0"] * 2)):
+    cfg = SearchConfig(file_path=path, keyword=keyword, devices=devices)
+    engine = SearchEngine(cfg, device="cuda")
+    scan_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.run_distributed()
+    torch.cuda.synchronize()
+    st = engine.last_stats
+    out[mode] = {
+        "wall": time.perf_counter() - t0,
+        "results": [[r.offset, sorted(r.values_map.items())] for r in res],
+        "launches": dict(scan_cuda.launch_counts),
+        "dispatches": st.device_dispatches, "chunks": st.chunks,
+        "h2d_bytes": st.h2d_bytes, "ici_halo_bytes": st.ici_halo_bytes,
+    }
+print("RESULT:" + json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_phase(torch, path: Path, searches, resident, batches, batch_found):
+    """Phase 11: the meshes and the multi-host search over phase 4's file
+    (see the module docstring).  Returns the launch counts of the
+    in-process mesh runs and of the two workers."""
+    import os
+
+    from monkey_moore_tpu_torch import bench_scaling
+    from monkey_moore_tpu_torch.config import SearchConfig
+    from monkey_moore_tpu_torch.conformance import run_gate, summary_line
+    from monkey_moore_tpu_torch.engine import SearchEngine
+    from monkey_moore_tpu_torch.multi import MultiSearcher
+    from monkey_moore_tpu_torch.ops import scan_cuda
+    from monkey_moore_tpu_torch.parallel.resident import (
+        clear_sharded_corpus_cache,
+    )
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+
+    def read(step, want, never, aligned=True):
+        """The launch counts since the last reset, added to the mesh
+        total: every kernel of *want* launched, none of *never*."""
+        launches = (path_launches(scan_cuda, f"phase 11 {step}") if aligned
+                    else dict(scan_cuda.launch_counts))
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        check(all(launches[k] > 0 for k in want)
+              and all(launches[k] == 0 for k in never),
+              f"phase 11 {step}: launches {launches}, want {want} and never "
+              f"{never}")
+        print(f"phase 11 launches of {step}: {launches}", flush=True)
+        scan_cuda.reset_launch_counts()
+
+    a_b = ("tile_counts", "gather_tiles")
+    no_c_d_e = ("tile_counts_multi", "tile_counts_elems",
+                "gather_tiles_block")
+    cards = torch.cuda.device_count()
+    meshes = [["cuda:0"] * 4]
+    if cards > 1:
+        meshes.append([f"cuda:{i}" for i in range(cards)])
+    scan_cuda.reset_launch_counts()
+    for devices in meshes:
+        clear_sharded_corpus_cache()  # the first search uploads the file
+        for name, (kwargs, planted) in searches.items():
+            engine = SearchEngine(
+                SearchConfig(file_path=path, devices=devices, **kwargs),
+                device="cuda")
+            walls = []
+            for attempt in ("first", "repeat"):
+                t0 = time.perf_counter()
+                results = engine.run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                found = [(r.offset, r.values_map) for r in results]
+                check(found == resident[name],
+                      f"phase 11 mesh {name!r} ({attempt}, {len(devices)} "
+                      "shards): differs from phase 4's results")
+            stats = engine.last_stats
+            missing = sorted(set(planted) - {o for o, _ in found})
+            check(not missing, f"phase 11 mesh {name!r}: not found {missing}")
+            check(not stats.host_routed and stats.h2d_bytes == 0
+                  and stats.device_dispatches
+                  == kwargs.get("element_width", 1)
+                  and len(stats.per_device_candidates or devices)
+                  == len(devices),
+                  f"phase 11 mesh {name!r}: not one resident mesh step per "
+                  f"alignment: {stats.summary()}")
+            if name == "8-bit wildcard":
+                check(stats.fused_fallbacks > 0,
+                      "phase 11: the overflow keyword did not fall back")
+            print(f"phase 11 mesh {name!r} on {len(devices)} shards "
+                  f"({devices[0]}...): {len(results)} results (= phase 4), "
+                  f"first {walls[0]:.3f} s, repeat {walls[1]:.3f} s; "
+                  f"device_dispatches {stats.device_dispatches}, "
+                  f"ici_halo_bytes {stats.ici_halo_bytes}, "
+                  f"per_device_candidates {stats.per_device_candidates}, "
+                  f"fused_fallbacks {stats.fused_fallbacks}", flush=True)
+    read("the resident mesh route", a_b, no_c_d_e)
+
+    kwargs, _ = searches["8-bit"]
+    engine = SearchEngine(SearchConfig(
+        file_path=path, devices=meshes[0], resident_bytes_limit=0,
+        **kwargs), device="cuda")
+    t0 = time.perf_counter()
+    results = engine.run()
+    wall = time.perf_counter() - t0
+    check([(r.offset, r.values_map) for r in results] == resident["8-bit"],
+          "phase 11 chunked mesh step: differs from phase 4's results")
+    print(f"phase 11 chunked mesh step '8-bit' on 4 shards: "
+          f"{len(results)} results (= phase 4) in {wall:.3f} s | "
+          f"{engine.last_stats.summary()}", flush=True)
+    read("the chunked mesh step", a_b, no_c_d_e)
+
+    mkwargs, planted = batches["8-bit batch"]
+    specs = [spec for spec, _ in planted]
+    ms = MultiSearcher(path, devices=meshes[0], device="cuda", **mkwargs)
+    t0 = time.perf_counter()
+    groups = ms.search(specs)
+    wall = time.perf_counter() - t0
+    check([[(r.offset, r.values_map) for r in g] for g in groups]
+          == batch_found["8-bit batch"],
+          "phase 11 mesh batch: differs from phase 5's results")
+    print(f"phase 11 mesh batch K={len(specs)} on 4 shards: "
+          f"{[len(g) for g in groups]} results (= phase 5) in {wall:.3f} s",
+          flush=True)
+    read("the mesh batch", ("tile_counts_multi", "gather_tiles"),
+         ("tile_counts", "tile_counts_elems", "gather_tiles_block"))
+    clear_sharded_corpus_cache()
+
+    # (c) two processes on the one card, in a gloo group
+    root = Path(__file__).resolve().parent
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTIHOST_WORKER, coord, str(pid), "2",
+         str(path), kwargs["keyword"]],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(root))) for pid in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0 and "RESULT:" in out,
+                  f"phase 11 multi-host worker failed ({proc.returncode}): "
+                  f"{err[-3000:]}")
+            line = next(x for x in out.splitlines() if x.startswith("RESULT:"))
+            outs.append(json.loads(line[len("RESULT:"):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    want = json.loads(json.dumps(
+        [[o, sorted(m.items())] for o, m in resident["8-bit"]]))
+    hosts: dict = {}
+    for pid, out in enumerate(outs):
+        for mode, run in out.items():
+            check(run["results"] == want,
+                  f"phase 11 multi-host worker {pid} ({mode}): differs "
+                  "from phase 4's results")
+            launches = run["launches"]
+            want_k, never_k = ((("tile_counts_elems", "gather_tiles_block"),
+                                ("tile_counts", "gather_tiles"))
+                               if mode == "device" else (a_b, no_c_d_e))
+            check(all(launches[k] > 0 for k in want_k)
+                  and all(launches[k] == 0 for k in never_k),
+                  f"phase 11 multi-host worker {pid} ({mode}): launches "
+                  f"{launches}")
+            for name, n in launches.items():
+                hosts[name] = hosts.get(name, 0) + n
+            print(f"phase 11 multi-host worker {pid} ({mode}): "
+                  f"{len(run['results'])} results (= phase 4) in "
+                  f"{run['wall']:.3f} s; dispatches {run['dispatches']}, "
+                  f"chunks {run['chunks']}, h2d_bytes {run['h2d_bytes']}, "
+                  f"ici_halo_bytes {run['ici_halo_bytes']}; launches "
+                  f"{launches}", flush=True)
+    print(f"phase 11 multi-host: 2 processes x 2 runs in {wall:.1f} s "
+          f"(process start-up included); launches {hosts}", flush=True)
+
+    # (d) the gate's mesh pass
+    scan_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_gate(GATE_TRIALS, GATE_SEED, GATE_MULTI, device="cuda")
+    secs = time.perf_counter() - t0
+    print(f"phase 11 gate (mesh pass), seed {GATE_SEED}, {GATE_TRIALS} "
+          f"trials and {GATE_MULTI} batch trials on the card in "
+          f"{secs:.1f} s: {summary_line(result)}", flush=True)
+    for failure in result["failures"]:
+        print("phase 11 FAIL:", failure, flush=True)
+    check(result["failed"] == 0 and result["passed"] == GATE_JAX_PASSED
+          and result["known_divergence"] == GATE_JAX_KNOWN,
+          f"phase 11 gate: not the JAX gate's {GATE_JAX_PASSED} passed and "
+          f"{GATE_JAX_KNOWN} known divergences: {summary_line(result)}")
+    # the gate's tiny chunks may take the gathers' edge copy
+    read("the gate's mesh pass", a_b, ("tile_counts_elems",
+                                        "gather_tiles_block"), aligned=False)
+
+    # (e) mesh sizes side by side over the file
+    t0 = time.perf_counter()
+    rows = bench_scaling.measure(path, kwargs["keyword"], (1, 2, 4), 3,
+                                 "cuda")
+    for d, row in rows.items():
+        check(row["results"] == len(resident["8-bit"])
+              and row["device_dispatches"] == 1
+              and row["h2d_bytes_repeat"] == 0,
+              f"phase 11 bench_scaling at {d} shards: {row}")
+    print(f"phase 11 bench_scaling over {FILE_BYTES // MIB} MiB in "
+          f"{time.perf_counter() - t0:.1f} s: {json.dumps(rows)}", flush=True)
+    read("bench_scaling", a_b, no_c_d_e)
+    print(f"phase 11 wall: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total, hosts
 
 
 def bench_phase(torch, err_i: int):
@@ -1278,6 +1540,8 @@ def main() -> int:
         launches["cli"] = frontend_phase(torch, Path(tmp), path, searches,
                                          resident, batches, batch_found)
         launches["gate"] = gate_phase(torch)
+        launches["mesh"], launches["multihost"] = mesh_phase(
+            torch, path, searches, resident, batches, batch_found)
     launches["bench"], load_row = bench_phase(torch, err_i)
     kernels.append(load_row)
     for row in kernels:

@@ -1,7 +1,7 @@
 """monkey_moore_tpu_torch — the relative-search engine on PyTorch and CUDA.
 
-A port of ``monkey_moore_tpu``'s single-device search paths and its
-frontends to one NVIDIA Hopper card.  The JAX package stays the reference;
+A port of ``monkey_moore_tpu``'s search paths, its meshes and its
+frontends to NVIDIA Hopper cards.  The JAX package stays the reference;
 this package imports nothing of it and keeps its own copies of what it
 needs (configuration, pattern compiler, oracle, recovery, suppression, host
 scanner and C++ walker, previews, stats, validation, tables, sequences,
@@ -17,6 +17,9 @@ preferences, translations), under the same module names:
 - ``engine``   — ``SearchEngine(config, device="cuda")``, the file search
   entry point (resident files, and files streamed chunk by chunk);
 - ``multi``    — ``MultiSearcher(path, device="cuda")``, keyword batches;
+- ``parallel`` — meshes (``SearchConfig.devices``: torch devices, one per
+  shard) and multi-host search (``SearchEngine.run_distributed`` in a
+  gloo group); ``bench_scaling`` runs the mesh route at each mesh size;
 - ``dense``    — the in-memory search ``dense_search(pat, data,
   semantics, device="cuda")`` with ``dense_candidates`` and
   ``two_phase_candidates``, and the fused device step (counts → hot tiles

@@ -11,7 +11,9 @@ the port would match no branch and take the wrong route silently.  Hence:
   ``SearchResult``, ``SearchStats`` or ``FusedInfo`` (or a list of them)
   into the port's: dataclass and NamedTuple fields are read by name, enums
   are mapped by ``.name``, numpy arrays are copied.  It imports nothing of
-  the JAX package; classes are matched by name.
+  the JAX package; classes are matched by name.  A JAX config whose
+  ``devices`` is set raises ``TypeError``: JAX devices have no torch
+  counterpart, so the port's config takes its mesh explicitly.
 - :func:`require_own` and :func:`require_config` raise ``TypeError`` on an
   object that is not the port's own; the port's entry points call them.
 """
@@ -63,6 +65,12 @@ def carry_over(obj):
         cls = _CLASSES.get(type(obj).__name__)
         if cls is None:
             raise TypeError(f"carry_over: no counterpart of {type(obj)}")
+        if (cls is SearchConfig and type(obj) is not SearchConfig
+                and obj.devices is not None):
+            raise TypeError(
+                "carry_over: SearchConfig.devices holds JAX devices; set "
+                "the port's config's devices to torch devices instead"
+            )
         names = ([f.name for f in dataclasses.fields(obj) if f.init]
                  if is_record else type(obj)._fields)
         return cls(**{name: carry_over(getattr(obj, name)) for name in names})

@@ -136,8 +136,10 @@ class SearchConfig:
     max_matches_per_chunk: int = 65536
     #: Which offsets to report (see :class:`MatchSemantics`).
     semantics: MatchSemantics = MatchSemantics.GREEDY
-    #: Optional explicit list of JAX devices to shard the scan over; None =
-    #: single (default) device.
+    #: Optional sequence of torch devices (``torch.device``, ``"cuda:0"``,
+    #: ``"cpu"`` or a card index) to shard the scan over, one entry per
+    #: shard, repeats allowed (``parallel.mesh.make_mesh``); None = the
+    #: engine's one device.
     devices: Optional[Sequence] = None
     #: Use the Pallas TPU kernel when available (falls back to the pure-XLA
     #: path on CPU or on unsupported shapes).

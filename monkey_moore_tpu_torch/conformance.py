@@ -18,12 +18,17 @@ offset is re-proven a match by ``ops.scan_np.match_positions_np``.
 
 Routes rotate with the trial index ``t``: ``t % 3 == 0`` the host latency
 path, ``1`` the forced device route (``host_latency_threshold_bytes=0``:
-the resident corpus, kernels A + B), ``2`` the engine's streaming branch
-(``resident_bytes_limit=0``: element uploads, kernels D + E), where the
-tool takes a mesh.  The port has no meshes; the tool's draw of the mesh
-size is kept, so the draws stay in step.  Batch trials hold
-``MultiSearcher`` to the engine run per keyword (its non-resident branch
-on ``t % 3 == 2``).
+the resident corpus, kernels A + B), ``2`` a mesh, as the tool takes it:
+``devices=[device] * n`` with the tool's draw of ``n`` (2, 4 or 8 shards;
+the resident mesh route, kernels A + B on every shard).  Batch trials hold
+``MultiSearcher`` to the engine run per keyword (on a mesh of the tool's
+2 or 4 shards on ``t % 3 == 2``: kernel C on every shard).
+
+``run_gate(..., streaming=True)`` is a second pass over the same cases
+that keeps the odd geometries on the engine's streaming branch instead of
+the mesh (``resident_bytes_limit=0`` on ``t % 3 == 2``: element uploads,
+kernels D + E; the batch's non-resident branch); the mesh draws still
+happen, so the draws stay in step.
 
 Usage::
 
@@ -49,9 +54,10 @@ MODES = ("plain", "mixed", "wildcard", "seq", "valuescan", "degenerate")
 MODE_WEIGHTS = (0.20, 0.15, 0.20, 0.20, 0.15, 0.10)
 
 #: what ``t % 3`` selects, for the JSON artifact
-ROUTES = ("host / forced-device / streaming (t%3 rotation; the streaming "
-          "branch, resident_bytes_limit=0 with kernels D + E, where the JAX "
-          "gate takes a mesh)")
+ROUTES = ("host / forced-device / mesh (t%3 rotation, the mesh of "
+          "[device] * n with the JAX gate's draw of n; run_gate's streaming "
+          "pass takes the streaming branch, resident_bytes_limit=0 with "
+          "kernels D + E, there instead)")
 
 
 def _gen_trial(rng, mod):
@@ -125,11 +131,12 @@ def _is_true_match(pat, raw_bytes, byte_off, width, endian) -> bool:
 
 
 def run_gate(trials: int = 120, seed: int = 7, multi_trials=None,
-             device="cuda") -> dict:
+             device="cuda", streaming: bool = False) -> dict:
     """Run the gate on *device* (``"cuda"`` or ``"cpu"``); returns its
     counts: ``passed``, ``failed``, ``known_divergence``, ``mode_counts``,
     ``multi_checked`` and the first ``failures``.  ``multi_trials``
-    defaults to ``trials // 4``."""
+    defaults to ``trials // 4``.  ``streaming``: the engine's streaming
+    branch on ``t % 3 == 2`` instead of the tool's mesh."""
     from .config import Endianness, MatchSemantics, SearchConfig
     from .engine import SearchEngine, compute_search_blocks, resolve_device
     from .multi import MultiSearcher
@@ -225,8 +232,10 @@ def run_gate(trials: int = 120, seed: int = 7, multi_trials=None,
             chunk = int(rng.choice([4096, 65536, 1 << 20]))
 
             def mk_cfg(semantics):
+                mesh = None
                 if t % 3 == 2:
-                    rng.choice([2, 4, 8])  # the tool's mesh size draw
+                    # the tool's mesh size draw
+                    mesh = [device] * int(rng.choice([2, 4, 8]))
                 return SearchConfig(
                     file_path=path,
                     is_relative_search=not values,
@@ -243,8 +252,10 @@ def run_gate(trials: int = 120, seed: int = 7, multi_trials=None,
                         1 << 40 if t % 3 == 0 else 0
                     ),
                     resident_bytes_limit=(
-                        0 if t % 3 == 2 else SearchConfig.resident_bytes_limit
+                        0 if streaming and t % 3 == 2
+                        else SearchConfig.resident_bytes_limit
                     ),
+                    devices=None if streaming else mesh,
                 )
 
             # expected: oracle per logical block per alignment (exact
@@ -380,13 +391,17 @@ def run_gate(trials: int = 120, seed: int = 7, multi_trials=None,
                 ),
                 device_chunk_bytes=int(rng.choice([8192, 1 << 20])),
             )
+            mesh = None
             if t % 3 == 2:
-                rng.choice([2, 4])  # the tool's mesh size draw
+                # the tool's mesh size draw
+                mesh = [device] * int(rng.choice([2, 4]))
             ms = MultiSearcher(
                 path, device=device,
                 resident_bytes_limit=(
-                    0 if t % 3 == 2 else SearchConfig.resident_bytes_limit
+                    0 if streaming and t % 3 == 2
+                    else SearchConfig.resident_bytes_limit
                 ),
+                devices=None if streaming else mesh,
                 **common,
             )
             groups = ms.search(specs)

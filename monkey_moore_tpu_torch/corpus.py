@@ -26,10 +26,34 @@ import torch
 from .carry import require_own
 from .config import Endianness
 
-__all__ = ["ResidentCorpus", "get_resident_corpus", "clear_corpus_cache"]
+__all__ = [
+    "ResidentCorpus",
+    "derive_words",
+    "get_resident_corpus",
+    "clear_corpus_cache",
+]
 
 _cache: dict = {}
 _cache_lock = threading.Lock()
+
+
+def derive_words(raw: torch.Tensor, byte_shift: int, element_width: int,
+                 big: bool) -> torch.Tensor:
+    """The grid words of ``raw[:-1]`` (int32 words of a little-endian byte
+    stream plus one word to borrow from): the stream shifted down by
+    ``byte_shift`` bytes, then each 16-bit element byte-swapped when
+    ``big``.  A view of ``raw[:-1]`` where there is nothing to derive."""
+    if byte_shift:
+        k = 8 * byte_shift
+        low = (raw[:-1] >> k) & ((1 << (32 - k)) - 1)
+        w = low | (raw[1:] << (32 - k))
+    else:
+        w = raw[:-1]  # a view: nothing to derive
+    if element_width == 2 and big:
+        # byte swap within each 16-bit element
+        high = (w << 8) & (0xFF00FF00 - (1 << 32))  # as signed int32
+        w = ((w >> 8) & 0x00FF00FF) | high
+    return w
 
 
 class ResidentCorpus:
@@ -91,17 +115,8 @@ class ResidentCorpus:
         # a slice start past the end is clamped back, as a JAX dynamic
         # slice does
         start = max(0, min(b0 // 4, words.numel() - (n_words + 1)))
-        raw = words[start : start + n_words + 1]
-        if byte_shift:
-            k = 8 * byte_shift
-            low = (raw[:-1] >> k) & ((1 << (32 - k)) - 1)
-            w = low | (raw[1:] << (32 - k))
-        else:
-            w = raw[:-1]  # a view: nothing to derive
-        if s == 2 and endianness is Endianness.BIG:
-            # byte swap within each 16-bit element
-            high = (w << 8) & (0xFF00FF00 - (1 << 32))  # as signed int32
-            w = ((w >> 8) & 0x00FF00FF) | high
+        w = derive_words(words[start : start + n_words + 1], byte_shift, s,
+                         endianness is Endianness.BIG)
         if packed:
             return w
         return w.view(torch.uint8 if s == 1 else torch.uint16)[:want_elems]

@@ -55,6 +55,7 @@ from .ops.host import (
     extract_hot_tiles,
 )
 from .ops.scan_cuda import (
+    all_windows_counts,
     prefilter_operand,
     tile_counts_elems,
     tile_counts_gather,
@@ -168,17 +169,13 @@ def tile_counts(
     packed = _packed(pat, arr_device)
     if not packed:
         _check_elements(pat, arr_device)
-    n_elems = arr_device.numel() * (4 // width if packed else 1)
-    num_tiles = n_elems // tile_elems - 1
     pairs, _, _ = _prefilter_sel(pat)
     if not pairs:
         # no literal checks (all-wildcard keyword): every valid window
         # matches; count directly
-        starts = np.arange(num_tiles) * tile_elems
-        last_valid = valid_count - pat.length  # inclusive
-        return np.clip(last_valid + 1 - starts, 0, tile_elems).astype(
-            np.int32
-        )
+        return all_windows_counts(
+            pat, arr_device, valid_count, tile_elems
+        ).cpu().numpy()
     checks = prefilter_operand(pat, arr_device.device)
     if packed:
         counts = _kernel_tile_counts(

@@ -17,8 +17,21 @@ dense scan:
   element-array step (kernels D and E).
 
 Both keep up to ``pipeline_depth`` fused steps in flight: step k+1 is
-enqueued before step k's result buffer is copied back.  Multi-device
-meshes and multi-host search are not ported yet and raise.
+enqueued before step k's result buffer is copied back.
+
+**Meshes** (``SearchConfig.devices``, a sequence of torch devices; see
+``parallel/``): the file is resident across the mesh
+(``parallel.resident.get_sharded_corpus``) and each alignment grid is
+scanned in one mesh step, every shard's kernels A and B enqueued before
+any result is fetched (``_scan_mesh_resident``); files over the residency
+limit, and multi-host runs, take the chunked mesh step inside the
+pipeline (each decoded chunk cut into shards on the mesh).
+
+**Multi-host** (:meth:`SearchEngine.run_distributed`, after
+``parallel.multihost.initialize_distributed``): each process keeps the
+window starts inside its own byte range, and the candidate lists are
+all-gathered before the global finalize, so every process returns the
+same results.
 """
 
 from __future__ import annotations
@@ -28,7 +41,7 @@ import os
 import time
 from collections import deque
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -49,7 +62,8 @@ from .dense import (
     upload_elements,
     wants_packed,
 )
-from .ops.recover import recover_from_values
+from .ops.host import _prefilter_sel, auto_k_cap, extract_hot_tiles
+from .ops.recover import recover_from_values, recovery_shifts
 from .ops.scan_host import (
     decode_grid_host,
     host_candidates_values,
@@ -57,6 +71,10 @@ from .ops.scan_host import (
 )
 from .ops.suppress import greedy_suppress
 from .oracle import reference_walk
+from .parallel import sharded
+from .parallel.mesh import make_mesh
+from .parallel.multihost import gather_results, process_count, process_index
+from .parallel.resident import get_sharded_corpus
 from .pattern import CompiledPattern, compile_pattern
 from .preview import decode_elements, generate_preview
 from .profiling import SearchStats, StageTimer, device_trace
@@ -128,6 +146,30 @@ def finalize_candidates(
             byte_off, val = candidate_info[(a, e)]
             results.append((byte_off, recover_from_values(pat, val)))
     return results
+
+
+class _MeshInFlight(NamedTuple):
+    """A mesh step kept in flight by the chunked mesh path: the sharded
+    pending buffers plus the decoded chunk retained for the overflow
+    host-extraction fallback."""
+
+    pending: object  #: parallel.sharded.ShardedPending
+    arr: object  #: decoded host chunk (fallback extraction input)
+    count: int  #: valid element count of this chunk
+
+
+def _accumulate_mesh_stats(stats, finfo, n_dev, tile_elems, width):
+    """Fold one mesh step's structural metrics into the run stats, as the
+    JAX engine counts them: the halo volume (one tile per shard per step,
+    the JAX step's ``ppermute``; the port copies a resident grid's halo
+    tiles once, when it derives them) and the per-shard exact-candidate
+    balance."""
+    stats.ici_halo_bytes += n_dev * tile_elems * width
+    if finfo is not None and finfo.per_device is not None:
+        if stats.per_device_candidates is None:
+            stats.per_device_candidates = [0] * len(finfo.per_device)
+        for i, c in enumerate(finfo.per_device):
+            stats.per_device_candidates[i] += c
 
 
 _HOST_FILE_CACHE: dict = {}  # most recent small file's bytes (host RAM)
@@ -218,10 +260,8 @@ class SearchEngine:
         distributed: bool = False,
     ) -> List[SearchResult]:
         cfg = self.config
-        if distributed:
-            raise NotImplementedError("multi-host search is not ported")
-        if cfg.devices is not None:
-            raise NotImplementedError("multi-device meshes are not ported")
+        # the mesh of ``cfg.devices`` (TypeError on a foreign device)
+        mesh = make_mesh(cfg.devices) if cfg.devices else None
         progress = on_progress or (lambda pct, step: None)
         aborted = _normalize_abort(abort_flag)
 
@@ -244,6 +284,26 @@ class SearchEngine:
         )
         log("blocks=", len(blocks), " file_size=", file_size)
 
+        # Multi-host: this process scans only window starts inside its base
+        # byte region; candidate lists are all-gathered before the
+        # (deterministic) global finalize, so every host returns the
+        # identical result list — the analog of the reference's future
+        # harvesting + merge (``search_engine.cpp:83-102,193-197``).  The
+        # file must be readable on every host.
+        own_bytes = None
+        gather = None
+        if distributed:
+            n_proc = process_count()
+            if n_proc > 1:
+                host_base = -(-file_size // n_proc)
+                own_bytes = (
+                    min(process_index() * host_base, file_size),
+                    min((process_index() + 1) * host_base, file_size),
+                )
+                gather = gather_results
+                log("distributed: host ", process_index(), "/", n_proc,
+                    " owns bytes ", own_bytes)
+
         progress(0, SearchStep.SEARCHING)
 
         if file_size and file_size <= cfg.host_latency_threshold_bytes:
@@ -260,20 +320,30 @@ class SearchEngine:
         use_host = (
             cfg.semantics is not MatchSemantics.REFERENCE
             and file_size > 0
-            and (huge_pattern or file_size <= cfg.host_latency_threshold_bytes)
+            and (
+                huge_pattern
+                or (
+                    gather is None
+                    and mesh is None
+                    and file_size <= cfg.host_latency_threshold_bytes
+                )
+            )
         )
         with device_trace():
             if cfg.semantics is MatchSemantics.REFERENCE:
                 raw = self._scan_reference(
-                    pat, data, file_size, blocks, progress, aborted, timer
+                    pat, data, file_size, blocks, progress, aborted, timer,
+                    own_bytes=own_bytes, gather=gather,
                 )
             elif use_host:
                 raw = self._scan_host(
-                    pat, data, file_size, blocks, progress, aborted, timer
+                    pat, data, file_size, blocks, progress, aborted, timer,
+                    own_bytes=own_bytes, gather=gather,
                 )
             else:
                 raw = self._scan_dense(
-                    pat, data, file_size, blocks, progress, aborted, timer
+                    pat, data, file_size, blocks, progress, aborted, timer,
+                    mesh=mesh, own_bytes=own_bytes, gather=gather,
                 )
         if raw is None:  # aborted
             return []
@@ -305,6 +375,26 @@ class SearchEngine:
         return results
 
     # ------------------------------------------------------------------
+    def run_distributed(
+        self,
+        on_progress: Optional[ProgressCallback] = None,
+        abort_flag=None,
+        generate_previews: bool = False,
+    ) -> List[SearchResult]:
+        """Multi-host :meth:`run`: each process scans its own byte range
+        on its device (or its mesh) and the merged global result list is
+        returned on every process.  Call :func:`~monkey_moore_tpu_torch.
+        parallel.multihost.initialize_distributed` first; a plain
+        :meth:`run` when there is one process.
+
+        ``abort_flag`` must be raised on every process (the final gather
+        is a collective).
+        """
+        return self.run(
+            on_progress, abort_flag, generate_previews, distributed=True
+        )
+
+    # ------------------------------------------------------------------
     def _element_grid(self, file_size: int, align: int) -> int:
         """Valid element count of alignment grid *align* (mirrors the
         per-block ``data_count`` trim, ``search_engine.cpp:137-141``)."""
@@ -322,9 +412,16 @@ class SearchEngine:
 
     # ------------------------------------------------------------------
     def _scan_dense(self, pat, data, file_size, blocks, progress, aborted,
-                    timer):
-        """Two-phase dense scan on one device (fused device steps + the
-        per-(block, alignment) greedy suppression of ``finalize_candidates``).
+                    timer, mesh=None, own_bytes=None, gather=None):
+        """Two-phase dense scan (fused device steps + the per-(block,
+        alignment) greedy suppression of ``finalize_candidates``).
+
+        ``mesh``: the ``parallel.mesh.Mesh`` to scan across, or None for
+        one device.  ``own_bytes``: optional (lo, hi) byte interval — only
+        window starts inside it are kept, and chunks with no owned starts
+        are skipped (multi-host partitioning).  ``gather``: optional
+        collective applied to the flat candidate arrays before the global
+        finalize.
         """
         cfg = self.config
         s = cfg.element_width
@@ -342,10 +439,51 @@ class SearchEngine:
         want = (tiles_per_chunk + 1) * tile_elems
         packed = wants_packed(pat)
 
+        # Sharded resident corpus: upload once, derive every grid on its
+        # shard, scan the WHOLE corpus in one mesh step per alignment —
+        # repeat searches upload no corpus bytes.  Multi-host (own_bytes)
+        # keeps the chunked mesh step.
+        if mesh is not None and own_bytes is None and file_size \
+                and L <= TILE_ELEMS:
+            per_dev = -(-file_size // len(mesh))
+            # the gathered slot spans tile + ONE halo tile and the shard
+            # halo is one tile, so tile_elems must cover the window
+            tile_m = min(
+                TILE_ELEMS,
+                max(
+                    64,
+                    1 << (per_dev - 1).bit_length(),
+                    1 << (L - 1).bit_length(),
+                ),
+            )
+            with timer.stage("corpus_upload"):
+                corpus = get_sharded_corpus(
+                    cfg.file_path, file_size, mesh, tile_m,
+                    cfg.resident_bytes_limit,
+                )
+            if corpus is not None:
+                # the JAX engine's XLA body wraps on shards past 2^31
+                # elements and takes the chunked step there; the port
+                # follows the same route so that the counts agree
+                pairs_m, _, max_shift_m = _prefilter_sel(pat)
+                mode_m = sharded._fused_mode(
+                    cfg.use_pallas, corpus.tile_elems, max_shift_m
+                )
+                if not pairs_m:
+                    mode_m = "xla"  # matches _scan_mesh_resident's body
+                shard_elems = (corpus.t_loc(s) + 1) * corpus.tile_elems
+                if mode_m != "xla" or shard_elems < 2**31:
+                    return self._scan_mesh_resident(
+                        pat, data, file_size, blocks, progress, aborted,
+                        timer, corpus,
+                    )
+
         # Resident corpus: upload once, derive element grids on device;
-        # chunks then cost no host→device transfer at all.
+        # chunks then cost no host→device transfer at all.  Multi-host
+        # (own_bytes) streams instead — residency would upload the WHOLE
+        # corpus to every host when each scans only ~1/N of it.
         resident = None
-        if file_size:
+        if file_size and mesh is None and own_bytes is None:
             with timer.stage("corpus_upload"):
                 resident = get_resident_corpus(
                     cfg.file_path,
@@ -360,6 +498,9 @@ class SearchEngine:
 
         per_group: dict = {}
         candidate_info: dict = {}
+
+        mesh_n_dev = len(mesh) if mesh is not None else 0
+        pat_width = np.dtype(pat.dtype).itemsize
 
         n_chunks = max(1, -(-max(
             (self._element_grid(file_size, a) for a in range(s)), default=0
@@ -388,6 +529,10 @@ class SearchEngine:
             for off, val in zip(offs.tolist(), vals.tolist()):
                 e_global = e0 + off
                 byte_off = a + e_global * s
+                if own_bytes is not None and not (
+                    own_bytes[0] <= byte_off < own_bytes[1]
+                ):
+                    continue
                 timer.stats.candidates += 1
                 block_id = byte_off // base
                 per_group.setdefault((block_id, a), []).append(e_global)
@@ -396,23 +541,43 @@ class SearchEngine:
         # Pipelined fused steps: up to ``pipeline_depth`` steps stay in
         # flight, so chunk k+1's grid derivation and kernels are enqueued
         # before chunk k's result copy blocks.  The deque holds
-        # (meta, FusedPending) steps plus progress markers (meta, None) so
-        # callbacks fire in chunk order.
+        # (meta, FusedPending or _MeshInFlight) steps plus progress markers
+        # (meta, None) so callbacks fire in chunk order.
         depth = max(1, cfg.pipeline_depth)
         pending: deque = deque()
         in_flight = [0]  # unfetched steps in the deque (markers are free)
 
         def flush_one() -> bool:
             meta, pnd = pending.popleft()
-            if pnd is not None:
-                in_flight[0] -= 1
-                a, e0 = meta
+            if pnd is None:
+                bytes_done, final = meta
+                return tracker.advance_to(bytes_done, final=final)
+            in_flight[0] -= 1
+            a, e0 = meta
+            if isinstance(pnd, _MeshInFlight):
+                # mesh step: fetch the per-shard result buffers one
+                # pipeline slot late; overflow falls back to host
+                # extraction on the retained decoded chunk
+                with timer.stage("device_scan"):
+                    offs, vals, finfo, over = (
+                        sharded.sharded_fused_step_finish(pnd.pending)
+                    )
+                _accumulate_mesh_stats(
+                    timer.stats, finfo, mesh_n_dev, tile_elems, pat_width,
+                )
+                if over is not None:
+                    # extract_hot_tiles clamps per-tile slices to the
+                    # buffer end, so the decoded chunk passes through
+                    # unpadded
+                    with timer.stage("host_extract"):
+                        offs, vals = extract_hot_tiles(
+                            pat, pnd.arr[: pnd.count], over, tile_elems
+                        )
+            else:
                 with timer.stage("device_scan"):
                     offs, vals, finfo = fused_count_extract_finish(pnd)
-                record_step(a, e0, offs, vals, finfo)
-                return True
-            bytes_done, final = meta
-            return tracker.advance_to(bytes_done, final=final)
+            record_step(a, e0, offs, vals, finfo)
+            return True
 
         def flush(max_steps: int) -> bool:
             while in_flight[0] > max_steps or (
@@ -426,6 +591,20 @@ class SearchEngine:
             if aborted():
                 return None
             e0 = k * chunk_elems
+            if own_bytes is not None:
+                # starts owned by chunk k lie in bytes
+                # [e0*s, (e0 + chunk_elems)*s + s); skip chunks that cannot
+                # contain an owned start (other hosts cover them)
+                if (e0 + chunk_elems) * s + s <= own_bytes[0] or (
+                    e0 * s >= own_bytes[1]
+                ):
+                    bytes_done = min(file_size, (e0 + chunk_elems) * s)
+                    pending.append(
+                        ((bytes_done, k == n_chunks - 1), None)
+                    )
+                    if not flush(depth):
+                        return None
+                    continue
             timer.stats.chunks += 1
             for a in range(s):
                 n_a = self._element_grid(file_size, a)
@@ -434,7 +613,21 @@ class SearchEngine:
                 count_here = min(chunk_elems + L - 1, n_a - e0)
                 if count_here < L:
                     continue
-                if resident is not None:
+                if mesh is not None:
+                    # the chunked mesh step: the decoded chunk is cut into
+                    # shards on the mesh, each shard's fused step enqueued,
+                    # the fetch deferred behind later steps
+                    with timer.stage("decode"):
+                        arr = self._decode_grid(data, a, e0, count_here)
+                    timer.stats.h2d_bytes += arr.nbytes
+                    with timer.stage("device_scan"):
+                        pnd = _MeshInFlight(
+                            sharded.sharded_fused_step_start(
+                                pat, arr, mesh, count_here, tile_elems
+                            ),
+                            arr, count_here,
+                        )
+                elif resident is not None:
                     with timer.stage("device_scan"):
                         dev_arr = resident.grid_chunk(
                             s, cfg.endianness, a, e0, want, packed=packed
@@ -443,9 +636,10 @@ class SearchEngine:
                             pat, dev_arr, count_here, tile_elems=tile_elems
                         )
                 else:
-                    # streaming path (file over the residency limit):
-                    # decode the chunk, upload it as elements and run the
-                    # element-array step (kernels D and E)
+                    # streaming path (file over the residency limit, or a
+                    # multi-host run): decode the chunk, upload it as
+                    # elements and run the element-array step (kernels D
+                    # and E)
                     with timer.stage("decode"):
                         arr = self._decode_grid(data, a, e0, count_here)
                         if len(arr) < want:
@@ -479,13 +673,114 @@ class SearchEngine:
             return None
         if not tracker.finish():
             return None
+        if gather is not None:
+            # all-gather flat candidates, then rebuild the suppression
+            # groups — finalize below is deterministic, so every host
+            # produces the identical global result list
+            per_group, candidate_info = _gathered_groups(
+                gather, candidate_info, s, base, timer
+            )
+        return finalize_candidates(
+            pat, cfg.semantics, s, base, file_size, per_group, candidate_info
+        )
+
+    # ------------------------------------------------------------------
+    def _scan_mesh_resident(self, pat, data, file_size, blocks, progress,
+                            aborted, timer, corpus):
+        """Whole-corpus mesh scan against a sharded resident corpus: per
+        alignment grid, ONE mesh step (kernel A's counts, the hot-tile
+        gather with kernel B and the exact phase 2 on every shard, each
+        shard's halo tile already in place), with the corpus words resident
+        on the shards (``parallel/resident.py``).  H2D per repeat search:
+        zero.
+        """
+        cfg = self.config
+        s = cfg.element_width
+        L = pat.length
+        base = cfg.preferred_search_block_size
+        tile_elems = corpus.tile_elems
+        width = np.dtype(pat.dtype).itemsize
+        d = corpus.n_devices
+        t_loc = corpus.t_loc(s)
+
+        if corpus.fresh:
+            timer.stats.h2d_bytes += corpus.uploaded_bytes
+            corpus.fresh = False
+
+        pairs, _, _ = _prefilter_sel(pat)
+        per_group: dict = {}
+        candidate_info: dict = {}
+        tracker = _BlockProgress(len(blocks), base, progress, aborted)
+
+        # Dispatch phase: enqueue BOTH alignment grids' mesh steps before
+        # paying any result fetch, mirroring the dual-alignment structure of
+        # ``search_engine.cpp:129-159`` — a 16-bit search's second grid
+        # runs behind the first's fetch.
+        in_flight = []  # (a, valid_count, k_cap, p_cap, counts, combos)
+        for a in range(s):
+            if aborted():
+                return None
+            valid_count = self._element_grid(file_size, a)
+            if valid_count < L:
+                continue
+            timer.stats.chunks += 1
+            k_cap = auto_k_cap(pat, valid_count, tile_elems, len(pairs))
+            p_cap = 1024
+            with timer.stage("device_scan"):
+                shards = corpus.grid(s, cfg.endianness, a)
+                valid_loc = corpus.step_operands(pat, valid_count, s)
+                counts, combos = sharded.sharded_fused_dispatch(
+                    pat, shards, valid_loc, tile_elems, k_cap, p_cap
+                )
+            timer.stats.device_dispatches += 1
+            timer.stats.bytes_scanned += valid_count * s
+            in_flight.append((a, valid_count, k_cap, p_cap, counts, combos))
+
+        # Fetch phase: copy each grid's per-shard result buffers back only
+        # after every step is enqueued.
+        for a, valid_count, k_cap, p_cap, counts, combos in in_flight:
+            if aborted():
+                return None
+            t_total = max(1, -(-valid_count // tile_elems))
+            with timer.stage("device_scan"):
+                offs, vals, finfo, over = sharded.parse_sharded_combos(
+                    counts, combos, d, t_loc, t_total, k_cap, p_cap,
+                    tile_elems, 0,
+                )
+            timer.stats.fused_steps += 1
+            timer.stats.d2h_bytes += finfo.d2h_bytes
+            _accumulate_mesh_stats(timer.stats, finfo, d, tile_elems, width)
+            if over is not None:
+                timer.stats.fused_fallbacks += 1
+                log(
+                    "sharded fused step overflow (hot=", finfo.hot_tiles,
+                    "): host extraction fallback",
+                )
+                with timer.stage("decode"):
+                    arr = decode_grid_host(
+                        data, file_size, s, cfg.endianness, a
+                    )
+                with timer.stage("host_extract"):
+                    offs, vals = extract_hot_tiles(
+                        pat, arr, over, tile_elems
+                    )
+            if finfo.hot_tiles:
+                timer.stats.hot_tiles += finfo.hot_tiles
+                timer.stats.candidates += len(offs)
+            for off, val in zip(offs.tolist(), vals.tolist()):
+                byte_off = a + off * s
+                block_id = byte_off // base
+                per_group.setdefault((block_id, a), []).append(off)
+                candidate_info[(a, off)] = (byte_off, val)
+        if not tracker.finish():
+            return None
         return finalize_candidates(
             pat, cfg.semantics, s, base, file_size, per_group, candidate_info
         )
 
     # ------------------------------------------------------------------
     def _scan_host(self, pat, data, file_size, blocks, progress, aborted,
-                   timer):
+                   timer, own_bytes=None, gather=None):
         """Small-input latency path: dense scan on the HOST, no device.
 
         The reference's whole benchmark range is 128 KiB-16 MiB
@@ -551,6 +846,10 @@ class SearchEngine:
             for off, val in zip(offs.tolist(), vals.tolist()):
                 e_global = e0 + off
                 byte_off = a + e_global * s
+                if own_bytes is not None and not (
+                    own_bytes[0] <= byte_off < own_bytes[1]
+                ):
+                    continue
                 timer.stats.candidates += 1
                 block_id = byte_off // base
                 per_group.setdefault((block_id, a), []).append(e_global)
@@ -609,6 +908,10 @@ class SearchEngine:
                 )
             if not tracker.finish():
                 return None
+            if gather is not None:
+                per_group, candidate_info = _gathered_groups(
+                    gather, candidate_info, s, base, timer
+                )
             return finalize_candidates(
                 pat, cfg.semantics, s, base, file_size, per_group,
                 candidate_info,
@@ -636,13 +939,17 @@ class SearchEngine:
                 return None
         if not tracker.finish():
             return None
+        if gather is not None:
+            per_group, candidate_info = _gathered_groups(
+                gather, candidate_info, s, base, timer
+            )
         return finalize_candidates(
             pat, cfg.semantics, s, base, file_size, per_group, candidate_info
         )
 
     # ------------------------------------------------------------------
     def _scan_reference(self, pat, data, file_size, blocks, progress, aborted,
-                        timer):
+                        timer, own_bytes=None, gather=None):
         """Exact reference semantics: sequential walk per (block, alignment),
         run over a thread pool of ``preferred_num_threads`` workers — the
         mirror of the reference's ≤N concurrent ``std::async`` futures
@@ -652,17 +959,25 @@ class SearchEngine:
         progress callback fires per completed block (float accumulation of
         equal increments is completion-order independent, matching the
         reference's mutex-guarded accumulator, ``:161-165``).
+
+        Multi-host: a block is walked by the host whose ``own_bytes`` region
+        contains its start (blocks are the reference's independent work
+        units); per-host (offset, recovery values) lists are all-gathered
+        and every host rebuilds the identical equivalency maps.
         """
         cfg = self.config
         s = cfg.element_width
         results = []
+        flat_offs: list = []
+        flat_vals: list = []
+        shifts = recovery_shifts(pat)
         tracker = _BlockProgress(len(blocks), cfg.preferred_search_block_size,
                                  progress, aborted)
 
         def walk_block(offset, size):
             """Worker lambda mirror (``search_engine.cpp:107-168``): decode
             both alignment grids of one block, walk them, return per-match
-            (byte_off, vmap) plus the bytes walked."""
+            (byte_off, vmap, v0, v1) plus the bytes walked."""
             raw = data[offset : offset + size]
             out = []
             walked_bytes = 0
@@ -672,21 +987,43 @@ class SearchEngine:
                 # 16-bit-LE walk the memmap bytes in place)
                 arr = decode_grid_host(raw, size, s, cfg.endianness, a)
                 for pos, vmap in reference_walk(pat, arr):
-                    out.append((offset + pos * s + a, vmap))
+                    byte_off = offset + pos * s + a
+                    v0 = int(arr[pos + shifts[0]])
+                    v1 = (
+                        int(arr[pos + shifts[1]])
+                        if len(shifts) > 1
+                        else v0
+                    )
+                    out.append((byte_off, vmap, v0, v1))
                 walked_bytes += count * s
             return out, walked_bytes
 
+        def consume(block_results):
+            for byte_off, vmap, v0, v1 in block_results:
+                if gather is not None:
+                    # ship the numeric recovery values (the same ones the
+                    # walker derived vmap from, ``oracle._emit``)
+                    flat_offs.append(byte_off)
+                    flat_vals.append((v0, v1))
+                else:
+                    results.append((byte_off, vmap))
+
+        own = [
+            b for b in blocks
+            if own_bytes is None or own_bytes[0] <= b[0] < own_bytes[1]
+        ]
+        skipped = len(blocks) - len(own)
         n_threads = cfg.preferred_num_threads or (os.cpu_count() or 1)
 
         t_walk0 = time.perf_counter()
-        if n_threads <= 1 or len(blocks) <= 1:
+        if n_threads <= 1 or len(own) <= 1:
             # single worker: walk inline (no pool overhead)
-            for offset, size in blocks:
+            for offset, size in own:
                 if aborted():
                     return None
                 with timer.stage("reference_walk"):
                     block_results, walked_bytes = walk_block(offset, size)
-                results.extend(block_results)
+                consume(block_results)
                 timer.stats.bytes_scanned += walked_bytes
                 if not tracker.step():
                     return None
@@ -703,12 +1040,12 @@ class SearchEngine:
                 ) as pool:
                     futures = {
                         pool.submit(walk_block, off, sz): (off, sz)
-                        for off, sz in blocks
+                        for off, sz in own
                     }
                     try:
                         for fut in concurrent.futures.as_completed(futures):
                             block_results, walked_bytes = fut.result()
-                            results.extend(block_results)
+                            consume(block_results)
                             timer.stats.bytes_scanned += walked_bytes
                             if not tracker.step():
                                 return None
@@ -721,7 +1058,39 @@ class SearchEngine:
                     + time.perf_counter()
                     - t_walk0
                 )
+        for _ in range(skipped):
+            if not tracker.step():
+                return None
+        if gather is not None:
+            offs = np.array(flat_offs, dtype=np.int64)
+            vals = np.array(flat_vals, dtype=np.int64).reshape(-1, 2)
+            with timer.stage("gather"):
+                offs, vals = gather(offs, vals)
+            results = [
+                (int(o), recover_from_values(pat, v))
+                for o, v in zip(offs.tolist(), vals.tolist())
+            ]
         return results
+
+
+def _gathered_groups(gather, candidate_info, s, base, timer):
+    """Flatten local candidates → collective gather → rebuild the
+    per-(block, alignment) suppression groups from global byte offsets."""
+    items = sorted(candidate_info.items())
+    offs = np.array([v[0] for _, v in items], dtype=np.int64)
+    vals = np.array(
+        [list(v[1]) for _, v in items], dtype=np.int64
+    ).reshape(-1, 2)
+    with timer.stage("gather"):
+        offs, vals = gather(offs, vals)
+    per_group: dict = {}
+    info: dict = {}
+    for byte_off, val in zip(offs.tolist(), vals.tolist()):
+        a = byte_off % s
+        e_global = (byte_off - a) // s
+        per_group.setdefault((byte_off // base, a), []).append(e_global)
+        info[(a, e_global)] = (byte_off, val)
+    return per_group, info
 
 
 class _BlockProgress:

@@ -17,6 +17,11 @@ Example::
     hits = ms.search(["MONKEY", "BANANA", {"keyword": "b*tter",
                                            "wildcard": "*"}])
 
+With ``devices`` (a sequence of torch devices, see ``parallel/``) the
+batch scans a corpus resident across that mesh (``_search_mesh``): kernel
+C on every shard when the batch is eligible, otherwise each keyword
+through the engine's resident mesh route.
+
 Block grouping, suppression and the block-fit filter are applied per
 keyword by the port's copy of ``engine.finalize_candidates``; REFERENCE
 semantics run the port's engine once per keyword.  The JAX module's
@@ -50,7 +55,11 @@ from .dense import (
 )
 from .engine import SearchEngine, finalize_candidates, resolve_device
 from .ops.host import canonical_check_tables, extract_hot_tiles
+from .ops.scan_host import decode_grid_host
 from .ops.scan_torch import tile_counts_multi
+from .parallel.mesh import make_mesh
+from .parallel.resident import get_sharded_corpus
+from .parallel.sharded import sharded_fused_multi_step
 from .preview import decode_elements, generate_preview
 
 __all__ = ["MultiSearcher"]
@@ -60,7 +69,9 @@ Spec = Union[str, dict]
 
 class MultiSearcher:
     """Keyword batches over one file, scanning on *device* (``"cuda"``, the
-    default, or ``"cpu"``, which runs the kernels' plain versions)."""
+    default, or ``"cpu"``, which runs the kernels' plain versions), or
+    across the mesh of *devices* (torch devices; a JAX device raises
+    ``TypeError``)."""
 
     def __init__(
         self,
@@ -85,8 +96,10 @@ class MultiSearcher:
         self.preview_width = preferred_preview_width
         self.semantics = semantics
         self.resident_bytes_limit = resident_bytes_limit
-        #: multi-device meshes are not ported: :meth:`search` raises
-        self.devices = list(devices) if devices else None
+        #: the mesh the batch scans across (None: one device)
+        self.mesh = make_mesh(devices) if devices else None
+        #: the mesh's torch devices, as a config's ``devices`` takes them
+        self.devices = list(self.mesh.devices) if devices else None
         self.device = resolve_device(device, "MultiSearcher")
 
     def _config(self, spec: Spec) -> SearchConfig:
@@ -125,8 +138,8 @@ class MultiSearcher:
                 self._engine(s).run(generate_previews=generate_previews)
                 for s in specs
             ]
-        if self.devices:
-            raise NotImplementedError("multi-device meshes are not ported")
+        if self.mesh is not None:
+            return self._search_mesh(specs, generate_previews)
 
         pats = [self._engine(s).compile() for s in specs]
         if not self.file_path.exists():
@@ -234,6 +247,91 @@ class MultiSearcher:
                         )
                     emit(pi, offs, vals)
 
+        return self._finalize_all(
+            specs, pats, per_group, candidate_info, data, file_size,
+            generate_previews,
+        )
+
+    def _search_mesh(
+        self, specs: Sequence[Spec], generate_previews: bool
+    ) -> List[List[SearchResult]]:
+        """Keyword batch across the mesh.
+
+        The corpus lives resident across the mesh (``parallel/
+        resident.py``); where the batch is eligible
+        (``dense.fused_multi_eligible``) the WHOLE batch costs one mesh step
+        per alignment grid (``parallel.sharded.sharded_fused_multi_step``:
+        kernel C, then B, on every shard).  Otherwise each keyword runs the
+        engine's resident mesh route.  A failure raises.
+        """
+
+        def per_keyword():
+            out = []
+            for sp in specs:
+                cfg = self._config(sp)
+                cfg.devices = self.devices
+                out.append(
+                    SearchEngine(cfg, device=self.device).run(
+                        generate_previews=generate_previews
+                    )
+                )
+            return out
+
+        pats = [self._engine(sp).compile() for sp in specs]
+        if not self.file_path.exists():
+            raise FileNotFoundError("File not found")
+        file_size = self.file_path.stat().st_size
+        s = self.element_width
+        per_dev = -(-max(1, file_size) // len(self.mesh))
+        l_max = max(p.length for p in pats)
+        if l_max > TILE_ELEMS:
+            return per_keyword()
+        # the tile must cover the longest window (the engine's resident
+        # mesh tile rule): shard and tile halos are exactly one tile
+        tile_m = min(
+            TILE_ELEMS,
+            max(
+                64,
+                1 << (per_dev - 1).bit_length(),
+                1 << (l_max - 1).bit_length(),
+            ),
+        )
+        corpus = get_sharded_corpus(
+            self.file_path, file_size, self.mesh, tile_m,
+            self.resident_bytes_limit,
+        )
+        if corpus is None or not fused_multi_eligible(
+            pats, corpus.tile_elems
+        ):
+            return per_keyword()
+
+        data = np.memmap(self.file_path, dtype=np.uint8, mode="r")
+        l_min = min(p.length for p in pats)
+        per_group = [dict() for _ in pats]
+        candidate_info = [dict() for _ in pats]
+        for a in range(s):
+            valid_count = max(0, (file_size - a) // s)
+            if valid_count < l_min:
+                continue
+            res = sharded_fused_multi_step(
+                pats, corpus.grid(s, self.endianness, a), valid_count,
+                corpus.tile_elems, corpus.t_loc(s),
+            )
+            arr = None  # decoded once per alignment, only if any overflow
+            for pi, (offs, vals, _info, over) in enumerate(res):
+                if over is not None:
+                    if arr is None:
+                        arr = decode_grid_host(
+                            data, file_size, s, self.endianness, a
+                        )
+                    offs, vals = extract_hot_tiles(
+                        pats[pi], arr, over, corpus.tile_elems
+                    )
+                for off, val in zip(offs.tolist(), vals.tolist()):
+                    byte_off = a + off * s
+                    block_id = byte_off // self.block_size
+                    per_group[pi].setdefault((block_id, a), []).append(off)
+                    candidate_info[pi][(a, off)] = (byte_off, val)
         return self._finalize_all(
             specs, pats, per_group, candidate_info, data, file_size,
             generate_previews,

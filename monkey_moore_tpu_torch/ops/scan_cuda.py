@@ -69,6 +69,8 @@ __all__ = [
     "gather_tiles",
     "gather_tiles_plain",
     "tile_counts_gather",
+    "all_windows_gather",
+    "all_windows_counts",
     "multi_operand",
     "tile_counts_multi",
     "tile_counts_multi_plain",
@@ -412,6 +414,39 @@ def tile_counts_gather_elems(
     return counts, _hot_slots_and_combo(
         pat, elems, counts, valid_count, tile_elems, k_cap, p_cap
     )
+
+
+def all_windows_gather(
+    pat: CompiledPattern,
+    data: torch.Tensor,
+    valid_count: int,
+    tile_elems: int,
+    k_cap: int,
+    p_cap: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`tile_counts_gather` for a pattern with no prefilter check (an
+    all-wildcard keyword; ``fused_body_xla`` with no pairs): every window
+    start ``e <= valid_count - length`` counts, so the counts come from the
+    geometry, with no counts kernel; then the same tail (kernel B from
+    packed words, E from elements), enqueued with no host sync."""
+    counts = all_windows_counts(pat, data, valid_count, tile_elems)
+    return counts, _hot_slots_and_combo(
+        pat, data, counts, valid_count, tile_elems, k_cap, p_cap
+    )
+
+
+def all_windows_counts(pat: CompiledPattern, data: torch.Tensor,
+                       valid_count: int, tile_elems: int) -> torch.Tensor:
+    """int32[T] counts of a pattern with no prefilter check over ``data``
+    (packed words or u8/u16 elements, T+1 tiles): the valid window starts
+    of each tile, computed on ``data``'s device from the geometry alone."""
+    width = np.dtype(pat.dtype).itemsize
+    per_elem = 4 // width if data.dtype == torch.int32 else 1
+    n_tiles = data.numel() * per_elem // tile_elems - 1
+    starts = torch.arange(n_tiles, dtype=torch.int64,
+                          device=data.device) * tile_elems
+    return torch.clamp(valid_count - pat.length + 1 - starts, 0,
+                       tile_elems).to(torch.int32)
 
 
 def _hot_slots_and_combo(pat, data, counts, valid_count, tile_elems, k_cap,

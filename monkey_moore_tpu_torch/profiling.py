@@ -40,10 +40,11 @@ class SearchStats:
     host_routed: bool = False
     #: host→device bytes uploaded
     h2d_bytes: int = 0
-    #: bytes crossed between devices in shard-boundary halo exchanges (mesh
-    #: paths, not ported: stays 0)
+    #: halo bytes of the mesh paths, counted as the JAX engine counts its
+    #: ``ppermute``s (one tile per shard per mesh step); the port copies
+    #: each resident grid's halo tiles once, when the grid is derived
     ici_halo_bytes: int = 0
-    #: per-shard exact candidate counts of the mesh paths (not ported)
+    #: per-shard exact candidate counts of the mesh paths
     per_device_candidates: Optional[list] = None
 
     @property

@@ -4,8 +4,10 @@ against the JAX package's gate, ``tools/conformance_gate.py``.
 - Its trial generator draws the tool's cases: ``_gen_trial`` equals the
   tool's over hundreds of draws on several seeds.
 - ``run_gate`` on the CPU (the kernels' plain versions) reports no failure
-  at a small trial count, on all three routes (host, forced device,
-  streaming), and reaches the plain versions of kernels A, B, D and E.
+  at a small trial count, on all three routes (host, forced device and
+  the tool's mesh), and reaches the plain versions of kernels A, B and C;
+  its streaming pass takes the streaming branch in the mesh's place and
+  reaches A, B, D and E.
 - Its summary line equals the tool's on the same seed: the same cases,
   checks and known divergences.
 - The ``--json`` artifact and the exit without a card.
@@ -71,7 +73,9 @@ def _spy_plain(monkeypatch):
     return calls
 
 
-def test_run_gate_on_the_cpu_passes_on_every_route(monkeypatch):
+def _spy_routes(monkeypatch):
+    """The routes the gate's engine runs take: host, resident, stream or
+    mesh."""
     from monkey_moore_tpu_torch import engine
 
     routes = set()
@@ -82,15 +86,24 @@ def test_run_gate_on_the_cpu_passes_on_every_route(monkeypatch):
         stats = self.last_stats
         if stats.host_routed:
             routes.add("host")
+        elif self.config.devices:
+            routes.add("mesh")
         elif stats.fused_steps:
             routes.add("stream" if self.config.resident_bytes_limit == 0
                        else "resident")
         return out
 
     monkeypatch.setattr(engine.SearchEngine, "run", run)
+    return routes
+
+
+def test_run_gate_on_the_cpu_passes_on_every_route(monkeypatch):
+    """The streaming pass: the tool's cases with the engine's streaming
+    branch in the mesh's place."""
+    routes = _spy_routes(monkeypatch)
     calls = _spy_plain(monkeypatch)
     result = conformance.run_gate(trials=12, seed=3, multi_trials=3,
-                                  device="cpu")
+                                  device="cpu", streaming=True)
     assert result["failed"] == 0, result["failures"]
     assert result["passed"] > 30 and result["multi_checked"] > 0
     assert sum(result["mode_counts"].values()) == 12
@@ -100,10 +113,27 @@ def test_run_gate_on_the_cpu_passes_on_every_route(monkeypatch):
         assert calls.get(name, 0) > 0, calls
 
 
+@pytest.mark.parametrize("seed", [3, 8])
+def test_run_gate_takes_the_mesh(monkeypatch, seed):
+    """The default pass: ``t % 3 == 2`` runs on ``[device] * n`` with the
+    tool's draw of n — the resident mesh route, kernels A and B on every
+    shard — with no failure."""
+    routes = _spy_routes(monkeypatch)
+    calls = _spy_plain(monkeypatch)
+    result = conformance.run_gate(trials=9, seed=seed, multi_trials=3,
+                                  device="cpu")
+    assert result["failed"] == 0, result["failures"]
+    assert result["multi_checked"] > 0
+    assert routes == {"host", "resident", "mesh"}
+    for name in ("tile_counts_plain", "gather_tiles_plain"):
+        assert calls.get(name, 0) > 0, calls
+    assert calls.get("tile_counts_elems_plain", 0) == 0, calls
+
+
 def test_summary_equals_the_tools(tool, capsys, monkeypatch):
     """Seed 5, 12 trials and 3 batch trials: the tool (JAX on the CPU, its
-    mesh route on the virtual devices) and the port (its streaming branch
-    in the mesh route's place) print the same summary line."""
+    mesh route on the virtual devices) and the port (its mesh of the CPU
+    repeated the tool's number of times) print the same summary line."""
     monkeypatch.setattr("sys.argv", ["conformance_gate.py", "--cpu",
                                      "--trials", "12", "--multi-trials", "3",
                                      "--seed", "5"])
@@ -132,7 +162,7 @@ def test_json_artifact(tmp_path, capsys):
     assert (record["trials"], record["seed"]) == (4, 11)
     assert record["checks_failed"] == 0 and record["failures"] == []
     assert sum(record["mode_counts"].values()) == 4
-    assert "streaming" in record["routes"]
+    assert "mesh" in record["routes"] and "streaming" in record["routes"]
 
 
 def test_no_card_exits_1_naming_cuda(capsys):

@@ -647,3 +647,108 @@ def test_tile_counts_multi_batch_past_one_block(cuda, k, length, n_checks):
     want = scan_cuda.tile_counts_multi_plain(words, table, last_starts,
                                              **args)
     assert torch.equal(got, want) and int(want.sum()) > 0
+
+
+# ---- meshes on the card ---------------------------------------------------------
+
+
+def _mesh_corpus(tmp_path, n_bytes=300_000):
+    """Seeded bytes with "monkey" (+3) at shard and tile boundaries of a
+    four-shard mesh, 1 100 "dr?gon" (+7) plants that overflow a step, and
+    16-bit big-endian "monkey" (+0x3000) at both byte alignments."""
+    rng = np.random.default_rng(9)
+    data = rng.integers(0, 256, n_bytes).astype(np.uint8)
+    kw = (np.array([ord(c) for c in "monkey"]) + 3).astype(np.uint8)
+    for pos in (0, 65_533, 131_070, 200_001, n_bytes - 6):
+        data[pos : pos + 6] = kw
+    kw2 = (np.array([ord(c) for c in "dragon"]) + 7).astype(np.uint8)
+    for i in range(1100):
+        kw2[2] = i % 251
+        data[70_003 + 8 * i : 70_009 + 8 * i] = kw2
+    kw3 = (np.array([ord(c) for c in "monkey"]) + 0x3000).astype(">u2")
+    for pos in (2_000, 150_001, n_bytes - 31):  # both byte alignments
+        data[pos : pos + 12] = kw3.view(np.uint8)
+    path = tmp_path / "mesh.bin"
+    path.write_bytes(data.tobytes())
+    return path
+
+
+MESH_STATS = ("hot_tiles", "candidates", "fused_steps", "fused_fallbacks",
+              "device_dispatches", "bytes_scanned", "chunks", "d2h_bytes",
+              "h2d_bytes", "ici_halo_bytes", "per_device_candidates")
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(keyword="monkey"),
+    dict(keyword="dr*gon", wildcard="*"),
+    dict(keyword="m**", wildcard="*"),
+    dict(keyword="monkey", element_width=2, endianness=Endianness.BIG),
+    dict(keyword="monkey", resident_bytes_limit=0, device_chunk_bytes=65_536),
+])
+def test_mesh_engine_equals_cpu_mesh(cuda, tmp_path, kwargs):
+    """The engine on ``["cuda:0"] * 4`` (kernels A and B on every shard)
+    against the same mesh of CPU shards (the plain versions): results and
+    stats, first search and repeat."""
+    from monkey_moore_tpu_torch.engine import SearchEngine
+    from monkey_moore_tpu_torch.parallel.resident import (
+        clear_sharded_corpus_cache,
+    )
+
+    path = _mesh_corpus(tmp_path)
+    runs = {}
+    for dev in ("cuda:0", "cpu"):
+        clear_sharded_corpus_cache()
+        cfg = SearchConfig(file_path=path, devices=[dev] * 4, **kwargs)
+        scan_cuda.reset_launch_counts()
+        for _ in range(2):
+            engine = SearchEngine(cfg, device=dev)
+            got = [(r.offset, r.values_map) for r in engine.run()]
+            runs.setdefault(dev, []).append(
+                (got, [getattr(engine.last_stats, k) for k in MESH_STATS]))
+        launches = dict(scan_cuda.launch_counts)
+        if dev == "cuda:0":
+            assert launches["gather_tiles"] > 0, launches
+            assert launches["tile_counts_elems"] == 0, launches
+            assert launches["gather_tiles_block"] == 0, launches
+    clear_sharded_corpus_cache()
+    assert runs["cuda:0"] == runs["cpu"]
+    assert runs["cpu"][0][0]
+
+
+def test_mesh_batch_equals_cpu_mesh(cuda, tmp_path):
+    from monkey_moore_tpu_torch.multi import MultiSearcher
+
+    path = _mesh_corpus(tmp_path)
+    specs = ["monkey", {"keyword": "dr*gon", "wildcard": "*"}, "zzzzz"]
+    scan_cuda.reset_launch_counts()
+    got = MultiSearcher(path, devices=["cuda:0"] * 4,
+                        device="cuda").search(specs)
+    assert scan_cuda.launch_counts["tile_counts_multi"] == 4
+    assert scan_cuda.launch_counts["tile_counts"] == 0
+    want = MultiSearcher(path, devices=["cpu"] * 4,
+                         device="cpu").search(specs)
+    assert [[(r.offset, r.values_map) for r in g] for g in got] == [
+        [(r.offset, r.values_map) for r in g] for g in want]
+    assert len(got[0]) == 5 and len(got[1]) == 1100
+
+
+@pytest.mark.parametrize("tile_elems", [2, 256, 8192])
+def test_sharded_fused_step_equals_cpu(cuda, tile_elems):
+    """The chunk step's shards on the card (tiles of 2 bytes travel as
+    elements: kernels D and E) against CPU shards."""
+    from monkey_moore_tpu_torch.parallel.mesh import make_mesh
+    from monkey_moore_tpu_torch.parallel.sharded import sharded_fused_step
+
+    rng = np.random.default_rng(4)
+    count = 50_001 if tile_elems > 2 else 301
+    data = rng.integers(0, 256, count).astype(np.uint8)
+    for pos in range(3, count - 4, 97):
+        data[pos : pos + 4] = [97, 98, 97, 98]
+    pat = compile_pattern("ab" if tile_elems == 2 else "abab")
+    got = sharded_fused_step(pat, data, make_mesh(["cuda:0"] * 3), count,
+                             tile_elems)
+    want = sharded_fused_step(pat, data, make_mesh(["cpu"] * 3), count,
+                              tile_elems)
+    assert got[0].tolist() == want[0].tolist()
+    assert got[1].tolist() == want[1].tolist()
+    assert got[2] == want[2] and (got[3] is None) == (want[3] is None)

@@ -224,13 +224,25 @@ def test_abort_mid_pipeline(tmp_path):
 
 
 def test_unported_routes_raise(tmp_path):
+    """Meshes and multi-host search are ported: a JAX device in
+    ``devices`` raises ``TypeError`` (the port's meshes hold torch
+    devices), and a device with no kernels still raises."""
+    import jax
+
     cfg = tconfig.SearchConfig(file_path=write_file(tmp_path, FILE_DATA_8),
-                       keyword="text", host_latency_threshold_bytes=0)
-    with pytest.raises(NotImplementedError):
-        SearchEngine(cfg, device="cpu").run(distributed=True)
-    cfg.devices = ["cpu:0", "cpu:1"]
-    with pytest.raises(NotImplementedError):
+                               keyword="text", host_latency_threshold_bytes=0)
+    # one process: a distributed run is a plain run
+    assert [r.offset for r in SearchEngine(cfg, device="cpu").run(
+        distributed=True)] == [0, 9, 27, 50, 60]
+    cfg.devices = jax.devices()[:2]
+    with pytest.raises(TypeError, match="torch.device"):
         SearchEngine(cfg, device="cpu").run()
+    with pytest.raises(TypeError, match="devices"):
+        carry_over(SearchConfig(file_path=cfg.file_path, keyword="text",
+                                devices=jax.devices()[:2]))
+    cfg.devices = ["cpu"] * 2
+    assert [r.offset for r in SearchEngine(cfg, device="cpu").run()] == [
+        0, 9, 27, 50, 60]
     with pytest.raises(RuntimeError):
         SearchEngine(cfg, device="meta")
 
@@ -291,6 +303,16 @@ assert [r.offset for r in batch[0]] == offsets, batch
 data = np.fromfile(sys.argv[1], dtype=np.uint8)
 found = dense_search(compile_pattern("text"), data, device="cpu")
 assert [o for o, _ in found] == offsets, found
+from monkey_moore_tpu_torch import bench_scaling
+from monkey_moore_tpu_torch.parallel import resident, sharded, multihost
+cfg.devices = ["cpu"] * 4
+mesh = [r.offset for r in SearchEngine(cfg, device="cpu").run()]
+assert mesh == offsets, mesh
+batch = MultiSearcher(sys.argv[1], device="cpu", devices=["cpu"] * 2).search(
+    ["text", "none"])
+assert [r.offset for r in batch[0]] == offsets, batch
+assert bench_scaling.main(["--device", "cpu", "--mb", "1", "--iters", "1",
+                           "--devices", "1", "2"]) == 0
 os.environ.update(MMTPU_BENCH_ITERS="3", MMTPU_BENCH_WARMUP="1")
 assert bench.main(["--device", "cpu", "--mb", "4"]) == 0
 assert perf_probe.main(["--device", "cpu", "--mb", "4", "--iters", "1",
@@ -304,9 +326,10 @@ print("no-jax ok")
 
 
 def test_port_never_imports_jax(tmp_path):
-    """In a fresh process: the engine, a keyword batch, ``dense_search``, a
-    CPU bench and a CPU perf_probe run load neither jax nor any module of
-    the JAX package."""
+    """In a fresh process: the engine (on one device and on a mesh), a
+    keyword batch (on one device and on a mesh), ``dense_search``, the
+    mesh-size bench, a CPU bench and a CPU perf_probe run load neither jax
+    nor any module of the JAX package."""
     path = write_file(tmp_path, FILE_DATA_8)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(

@@ -379,9 +379,12 @@ def test_multi_searcher_matches_engine(tmp_path):
 
 
 def test_multi_searcher_unported_and_edge_cases(tmp_path):
+    import jax
+
     path = _rom8(tmp_path)
-    with pytest.raises(NotImplementedError):
-        MultiSearcher(path, device="cpu", devices=["cpu:0", "cpu:1"]).search(
+    # meshes are ported: a JAX device in ``devices`` raises TypeError
+    with pytest.raises(TypeError, match="torch.device"):
+        MultiSearcher(path, device="cpu", devices=jax.devices()[:2]).search(
             ["sword"])
     with pytest.raises(RuntimeError):
         MultiSearcher(path, device="meta")
