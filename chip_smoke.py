@@ -89,10 +89,26 @@
    pass, ``run_gate(150, 424242, 37, "cuda")`` with ``[device] * n`` on
    ``t % 3 == 2``: the JAX gate's summary, 547/550 with 3 known
    divergences; (e) ``bench_scaling`` over the file at mesh sizes 1, 2
-   and 4 (on one card: the cost of sharding, not scaling).
+   and 4 (on one card: the cost of sharding, not scaling);
+12. drives the harnesses that have no earlier phase: (a) ``bench_all``'s
+   eight suites in-process on one 12 GiB corpus generated on the card,
+   with the keyword planted at unaligned byte offsets past 2^31 and 2^32
+   and as u16 elements past 2^31 and 2^32 bytes: every plant found by its
+   suites, every reported offset holding the keyword (checked on the host
+   from the bytes there), every suite through kernels A and B and never C,
+   D or E, and the 8-bit suite's rate printed beside phase 8's; then
+   its 128 KiB-16 MiB ladder, every size on the host route; (b)
+   ``bench_baseline_configs`` at full size (``--scale 1 --iters 2``): every
+   configuration's plants found, the 1 GB row on the resident device
+   route, its four-shard mesh and two gloo worker processes equal to it;
+   (c) ``perf_probe --stage ab --mb 4096``: the three gathers give equal
+   combo buffers; (d) ``tui_smoke`` on the card (its 50 KB ROM rides the
+   host route and launches no kernel); (e) the host/device crossover: one
+   8-bit search at 4, 16 and 64 MiB on the host route and on the device
+   route (``host_latency_threshold_bytes=0``), first and best repeat.
 
 Phases 9-11 run after phase 7, while phase 4's file exists; phase 8 runs
-last.
+after them and phase 12 last.
 
 Phase 3 also holds kernel I against its plain version and ``torch.sum`` on
 the 512 MiB chunk buffer; phase 8 times it on the first 4 GiB as well
@@ -1385,9 +1401,10 @@ def bench_phase(torch, err_i: int):
     on the whole corpus and timed (after the launch counts are read), and
     timed again on the first 4 GiB, ``perf_probe``'s shape (kernel J): the
     kernel and ``torch.sum`` by back-to-back launches, the plain version by
-    CUDA-event medians.  Returns the path's launch counts and kernel I's row
-    of the kernels line, with J's figures under ``"j_4gib"``; ``err_i`` is
-    phase 3's largest difference of kernel I."""
+    CUDA-event medians.  Returns the path's launch counts, kernel I's row
+    of the kernels line, with J's figures under ``"j_4gib"``, and the
+    bench's record; ``err_i`` is phase 3's largest difference of kernel
+    I."""
     import numpy as np
 
     from monkey_moore_tpu_torch import bench
@@ -1497,7 +1514,262 @@ def bench_phase(torch, err_i: int):
         "replaces": "bench.py:241", "max_abs_err": err, "ms": i_ms,
         "plain_ms": i_plain, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": i_library, "j_4gib": j,
-    }
+    }, record
+
+
+#: phase 12's sizes: ``bench_all``'s corpus (the headline's 12 GiB), the
+#: ``ab`` probe's corpus, the baseline configurations' divisor and the
+#: crossover's file sizes
+HARNESS_BENCH_MB, HARNESS_PROBE_MB, HARNESS_SCALE = 12288, 4096, 1
+CROSSOVER_MIB = (4, 16, 64)
+
+
+def holds_keyword(torch, raw, pat, width: int, offsets, what: str) -> None:
+    """Fails unless every element offset in *offsets* starts a window of
+    the u8 buffer *raw* (the elements' bytes, LE) that matches *pat*:
+    the windows' bytes are gathered on the card, copied in one piece and
+    matched on the host."""
+    import numpy as np
+
+    from monkey_moore_tpu_torch.ops.scan_np import match_positions_np
+
+    if len(offsets) == 0:
+        return
+    span = pat.length * width
+    start = torch.as_tensor(np.asarray(offsets, dtype=np.int64) * width,
+                            device=raw.device)
+    check(int(start.min()) >= 0 and int(start.max()) + span <= raw.numel(),
+          f"{what}: an offset outside the corpus")
+    idx = start[:, None] + torch.arange(span, device=raw.device)
+    segs = raw[idx].cpu().numpy()
+    if width == 2:
+        segs = segs.view("<u2")
+    bad = [int(o) for o, seg in zip(offsets, segs)
+           if 0 not in match_positions_np(pat, seg)]
+    check(not bad, f"{what}: offsets not holding the keyword: {bad[:10]}")
+
+
+def suites_phase(torch, bench_record):
+    """Phase 12 (a): ``bench_all``'s suites in-process at 12 GiB with
+    plants; returns the path's launch counts."""
+    import numpy as np
+
+    from monkey_moore_tpu_torch import bench_all
+    from monkey_moore_tpu_torch.bench import check_memory
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    torch.cuda.empty_cache()
+    n = HARNESS_BENCH_MB * MIB
+    device = torch.device("cuda")
+    problem = check_memory(device, n)
+    check(problem is None, str(problem))
+    kw = np.array([ord(c) for c in "abcde"], dtype=np.int64)
+    plants8 = [2**31 + 1, 2**32 + 3]  # byte offsets, not word-aligned
+    plants16 = [2**30 + 1001, 2**31 + 3001]  # element offsets
+    check(2 * (plants16[-1] + 5) <= n, f"a {n}-byte corpus is too small")
+
+    scan_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    words = bench_all.suite_corpus(n, device)
+    raw = words.view(torch.uint8)
+    for i, off in enumerate(plants8):
+        raw[off : off + 5] = torch.tensor((kw + 9 * i) % 256,
+                                          dtype=torch.uint8, device=device)
+    elems = words.view(torch.int16)
+    for i, e in enumerate(plants16):
+        elems[e : e + 5] = torch.tensor(kw + 0x3000 + 0x100 * i,
+                                        dtype=torch.int16, device=device)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    records, details = bench_all.run_suites(words, n, iters=3, warmup=3,
+                                            depth=3)
+    launches = path_launches(scan_cuda, "phase 12 bench_all")
+    for name, keyword, wildcard, width in bench_all.SUITES:
+        m = details[name]
+        got = m["launches"]
+        check(got["tile_counts"] > 0 and got["gather_tiles"] > 0
+              and got["tile_counts_multi"] == got["tile_counts_elems"]
+              == got["gather_tiles_block"] == 0,
+              f"phase 12 suite {name}: not kernels A and B alone: {got}")
+        found = m["offsets"].tolist()
+        planted = plants8 if width == 1 else plants16
+        missing = sorted(set(planted) - set(found))
+        check(not missing, f"phase 12 suite {name}: not found {missing}")
+        holds_keyword(torch, raw, bench_all.suite_pattern(
+            keyword, wildcard, width), width, found, f"phase 12 {name}")
+        print(f"phase 12 suite {name}: {len(found)} offsets, each holding "
+              f"the keyword, plants found; hot tiles {m['info'].hot_tiles}, "
+              f"k_cap fallbacks {m['fallbacks']}, launches {got}",
+              flush=True)
+    print(json.dumps({"bench_all_suites": records}), flush=True)
+    rate8 = records["BM_Search/Relative/8-Bit"]["bytes_per_s"]
+    print(f"phase 12 bench_all: {n // MIB} MiB generated and planted in "
+          f"{t_fill:.3f} s; 8-bit suite {rate8 / 1e9:.1f} GB/s beside phase "
+          f"8's fused step {bench_record['value'] / 1e9:.1f} GB/s "
+          f"({100.0 * rate8 / bench_record['value']:.1f}%)", flush=True)
+    del words, raw, elems
+    torch.cuda.empty_cache()
+    rates, _ = bench_all.sweep(3, "cuda")
+    check(list(rates) == [str(size) for size in bench_all.SWEEP_SIZES],
+          f"phase 12 bench_all ladder: {rates}")
+    return launches
+
+
+def baseline_phase(torch):
+    """Phase 12 (b): the five baseline configurations at full size;
+    returns the path's launch counts (the worker processes' not
+    included)."""
+    from monkey_moore_tpu_torch import bench_baseline_configs
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    with tempfile.TemporaryDirectory(prefix="mm_chip_baseline_") as tmp:
+        out = Path(tmp) / "baseline.json"
+        scan_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = bench_baseline_configs.main(["--scale", str(HARNESS_SCALE),
+                                          "--iters", "2", "--json",
+                                          str(out)])
+        wall = time.perf_counter() - t0
+        launches = path_launches(scan_cuda, "phase 12 baseline")
+        check(rc == 0, f"phase 12 baseline configs: rc {rc}")
+        blob = json.loads(out.read_text())
+    rows = blob["rows"]
+    check(len(rows) == 6 and all(r["planted_found"] for r in rows),
+          "phase 12 baseline: not six rows with their plants found")
+    check(rows[-1]["route"] == "device"
+          and rows[-1]["first_run_includes_upload"],
+          f"phase 12 baseline: the 1 GB row took {rows[-1]['route']}")
+    check(launches["tile_counts"] > 0 and launches["gather_tiles"] > 0,
+          f"phase 12 baseline: kernels A and B not launched: {launches}")
+    for r in rows:
+        print(f"phase 12 baseline {r['config'][:40]!r}: {r['size_bytes']} "
+              f"bytes [{r['route']}] {r['bytes_per_s'] / 1e9:.3f} GB/s "
+              f"repeat, first {r['first_run_s']:.3f} s, {r['results']} "
+              f"results, kernels {r['kernels']}", flush=True)
+    print(f"phase 12 baseline multi_shard {rows[-1]['multi_shard']}; "
+          f"multi_host {rows[-1]['multi_host']}; {wall:.1f} s", flush=True)
+    return launches
+
+
+def probe_ab_phase(torch):
+    """Phase 12 (c): ``perf_probe --stage ab``; returns its launches."""
+    import contextlib
+    import io
+
+    from monkey_moore_tpu_torch import perf_probe
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    scan_cuda.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = perf_probe.main(["--stage", "ab", "--mb",
+                              str(HARNESS_PROBE_MB)])
+    launches = path_launches(scan_cuda, "phase 12 probe_ab")
+    print(out.getvalue(), end="", flush=True)
+    check(rc == 0, f"phase 12 perf_probe ab: rc {rc} (the gathers' combo "
+          "buffers differ, or a failure)")
+    ab = [json.loads(x) for x in out.getvalue().splitlines()
+          if x.startswith('{"probe": "ab_')]
+    check(len(ab) == 3 and len({(r["hot"], r["fallback"]) for r in ab}) == 1,
+          f"phase 12 perf_probe ab: records {ab}")
+    check(launches["gather_tiles"] > 0 and launches["gather_tiles_block"] > 0,
+          f"phase 12 perf_probe ab: B and E not both launched: {launches}")
+    return launches
+
+
+def tui_phase() -> None:
+    """Phase 12 (d): ``tui_smoke`` on the card, in its own processes."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "monkey_moore_tpu_torch.tui_smoke"],
+        cwd=root, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(root)))
+    check(proc.returncode == 0,
+          f"phase 12 tui_smoke: rc {proc.returncode}: {proc.stdout[-2000:]}"
+          f"{proc.stderr[-2000:]}")
+    print(f"phase 12 tui_smoke on the card: {proc.stdout.strip()!r} (its "
+          "50 KB ROM rides the host route: no kernel launch)", flush=True)
+
+
+def crossover_phase(torch):
+    """Phase 12 (e): one 8-bit search at each of :data:`CROSSOVER_MIB` on
+    the host route (the default threshold, 64 MiB, keeps them there) and
+    on the device route (``host_latency_threshold_bytes=0``): the first
+    search and the best of three repeats, results equal.  Returns the
+    device route's launch counts."""
+    import numpy as np
+
+    from monkey_moore_tpu_torch.config import SearchConfig
+    from monkey_moore_tpu_torch.corpus import clear_corpus_cache
+    from monkey_moore_tpu_torch.engine import SearchEngine
+    from monkey_moore_tpu_torch.ops import scan_cuda
+
+    rng = np.random.default_rng(SEED + 12)
+    kw = (np.array([ord(c) for c in "monkey"]) + 3).astype(np.uint8)
+    rows = {}
+    total: dict = {}
+    with tempfile.TemporaryDirectory(prefix="mm_chip_crossover_") as tmp:
+        for mib in CROSSOVER_MIB:
+            n = mib * MIB
+            data = np.frombuffer(rng.bytes(n), dtype=np.uint8).copy()
+            plants = [11, n // 2 + 1, n - 6]
+            for off in plants:
+                data[off : off + 6] = kw
+            path = Path(tmp) / f"x{mib}.bin"
+            data.tofile(path)
+            row = {}
+            for route, threshold in (("host", None), ("device", 0)):
+                extra = ({} if threshold is None
+                         else {"host_latency_threshold_bytes": threshold})
+                cfg = SearchConfig(file_path=path, keyword="monkey", **extra)
+                clear_corpus_cache()
+                scan_cuda.reset_launch_counts()
+                times = []
+                for _ in range(4):  # the first search, then three repeats
+                    engine = SearchEngine(cfg, device="cuda")
+                    t0 = time.perf_counter()
+                    found = engine.run()
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                launches = path_launches(scan_cuda, f"phase 12 crossover "
+                                                    f"{mib} MiB {route}")
+                check(engine.last_stats.host_routed == (route == "host"),
+                      f"phase 12 crossover {mib} MiB: not the {route} route")
+                offs = [r.offset for r in found]
+                check(set(plants) <= set(offs),
+                      f"phase 12 crossover {mib} MiB {route}: plants missing")
+                row[route] = {"first_s": times[0],
+                              "repeat_s": min(times[1:]), "offsets": offs}
+                if route == "device":
+                    check(launches["tile_counts"] > 0,
+                          "phase 12 crossover: kernel A not launched")
+                    for name, k in launches.items():
+                        total[name] = total.get(name, 0) + k
+            check(row["host"]["offsets"] == row["device"]["offsets"],
+                  f"phase 12 crossover {mib} MiB: the routes differ")
+            rows[mib] = {route: {k: v for k, v in r.items() if k != "offsets"}
+                         for route, r in row.items()}
+            path.unlink()
+    clear_corpus_cache()
+    print(f"phase 12 crossover (8-bit 'monkey', seconds): {json.dumps(rows)}",
+          flush=True)
+    return total
+
+
+def harness_phase(torch, bench_record) -> dict:
+    """Phase 12: the harnesses (see the module docstring); returns the
+    launch counts of its paths."""
+    t0 = time.perf_counter()
+    launches = {"bench_all": suites_phase(torch, bench_record),
+                "baseline": baseline_phase(torch),
+                "probe_ab": probe_ab_phase(torch)}
+    tui_phase()
+    launches["crossover"] = crossover_phase(torch)
+    print(f"phase 12 wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1542,8 +1814,9 @@ def main() -> int:
         launches["gate"] = gate_phase(torch)
         launches["mesh"], launches["multihost"] = mesh_phase(
             torch, path, searches, resident, batches, batch_found)
-    launches["bench"], load_row = bench_phase(torch, err_i)
+    launches["bench"], load_row, bench_record = bench_phase(torch, err_i)
     kernels.append(load_row)
+    launches.update(harness_phase(torch, bench_record))
     for row in kernels:
         by_path = {name: counts[row["name"]]
                    for name, counts in launches.items()}

@@ -53,8 +53,8 @@ from .ops.scan_cuda import load_sum
 from .pattern import compile_pattern
 
 __all__ = ["HBM_GBPS", "HBM_BYTES_PER_S", "INT_OPS_PER_S", "bound",
-           "make_corpus", "tile_view", "back_to_back_ms", "sol_times",
-           "measure", "main"]
+           "measured_baseline", "make_corpus", "tile_view", "back_to_back_ms",
+           "sol_times", "measure", "main"]
 
 REPO = Path(__file__).resolve().parent.parent
 MIB = 1 << 20
@@ -93,18 +93,29 @@ def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
 KEYWORD = "abcde"
 
 
+def measured_baseline(prefix: str) -> dict:
+    """The last ``BASELINE_MEASURED.json`` entry whose key starts with
+    *prefix* (the reference's rates measured on the development host:
+    ``"measured"`` per suite, ``"sweep_8bit"`` per buffer size), or {}."""
+    try:
+        blob = json.loads((REPO / "BASELINE_MEASURED.json").read_text())
+    except (OSError, ValueError):
+        return {}
+    found = {}
+    for key, values in blob.items():
+        if key.startswith(prefix):
+            found = values
+    return found
+
+
 def reference_baseline() -> float:
     """The reference C++ core's 8-bit rate measured on the development
     host (``BASELINE_MEASURED.json``; ``bench.py:63-72``)."""
-    path = REPO / "BASELINE_MEASURED.json"
     try:
-        blob = json.loads(path.read_text())
-        for key, values in blob.items():
-            if key.startswith("measured"):
-                return float(values["BM_Search/Relative/8-Bit"])
-    except (OSError, ValueError, KeyError, TypeError):
-        pass
-    return 5.881e8
+        return float(
+            measured_baseline("measured")["BM_Search/Relative/8-Bit"])
+    except (KeyError, TypeError, ValueError):
+        return 5.881e8
 
 
 def settings() -> dict:

@@ -216,13 +216,20 @@ def fused_count_extract_start(
     grid_offset: int = 0,
     k_cap: int | None = None,
     p_cap: int = 1024,
+    *,
+    gather: str = "dma",
 ) -> FusedPending:
     """Enqueue phases 1 + 2 of one step WITHOUT fetching the result, so the
     caller can enqueue the next chunk first.  ``arr_device``: the chunk's
     ``(T+1) * tile_elems`` elements, as packed words (kernels A and B) or
-    u8/u16 elements (kernels D and E)."""
+    u8/u16 elements (kernels D and E).  ``gather``: the hot-tile gather of
+    packed words, one of ``scan_cuda.GATHER_MODES`` (kernel B by default;
+    only ``perf_probe``'s ``ab`` stage sets it)."""
     _own(pat, "fused_count_extract_start")
     pairs, _, _ = _prefilter_sel(pat)
+    if gather != "dma" and not (pairs and _packed(pat, arr_device)):
+        raise ValueError("only a packed step with a check takes another "
+                         "gather than kernel B")
     if k_cap is None:
         k_cap = auto_k_cap(pat, valid_count, tile_elems, len(pairs))
     if not pairs:
@@ -244,13 +251,15 @@ def fused_count_extract_start(
             grid_offset, k_cap, p_cap, eager=(offs, vals, info),
         )
     if _packed(pat, arr_device):
-        step = tile_counts_gather
+        counts_dev, combo_dev = tile_counts_gather(
+            pat, arr_device, valid_count, tile_elems, k_cap, p_cap,
+            gather=gather,
+        )
     else:
         _check_elements(pat, arr_device)
-        step = tile_counts_gather_elems
-    counts_dev, combo_dev = step(
-        pat, arr_device, valid_count, tile_elems, k_cap, p_cap
-    )
+        counts_dev, combo_dev = tile_counts_gather_elems(
+            pat, arr_device, valid_count, tile_elems, k_cap, p_cap
+        )
     return FusedPending(
         counts_dev, combo_dev, pat, arr_device, valid_count, tile_elems,
         grid_offset, k_cap, p_cap,
@@ -306,13 +315,16 @@ def fused_count_extract(
     grid_offset: int = 0,
     k_cap: int | None = None,
     p_cap: int = 1024,
+    *,
+    gather: str = "dma",
 ) -> Tuple[np.ndarray, np.ndarray, FusedInfo]:
     """Phases 1 + 2 for one device-resident chunk: ``(offsets, values,
-    info)``, offsets ascending, values the two recovery values per match."""
+    info)``, offsets ascending, values the two recovery values per match.
+    ``gather``: as :func:`fused_count_extract_start`."""
     return fused_count_extract_finish(
         fused_count_extract_start(
             pat, arr_device, valid_count, tile_elems=tile_elems,
-            grid_offset=grid_offset, k_cap=k_cap, p_cap=p_cap,
+            grid_offset=grid_offset, k_cap=k_cap, p_cap=p_cap, gather=gather,
         )
     )
 

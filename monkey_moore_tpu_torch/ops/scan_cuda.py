@@ -34,8 +34,11 @@ hot-tile selection, gather, unpack, exact phase 2 and the combo buffer,
 all enqueued with no host sync.  :func:`tile_counts_gather_elems` is its
 element-array twin (``_native_counts_gather_call``: kernels D and E), and
 :func:`tile_counts_multi_gather` the keyword-batch twin
-(``_swar_multi_gather_call``).  Packed words always gather with B and
-element arrays with E: the route follows the operand, not a probe.
+(``_swar_multi_gather_call``).  Packed words gather with B and element
+arrays with E: the route follows the operand, not a probe.  Only
+``perf_probe``'s ``ab`` stage asks :func:`tile_counts_gather` for another
+gather of the packed words (``gather=``, one of :data:`GATHER_MODES`), as
+the JAX probe sets ``_PALLAS_PROBE["gather_mode"]``.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from .scan_torch import (
 )
 
 __all__ = [
+    "GATHER_MODES",
     "launch_counts",
     "aligned_launch_counts",
     "reset_launch_counts",
@@ -83,6 +87,11 @@ __all__ = [
     "load_sum",
     "load_sum_plain",
 ]
+
+#: the fused tail's gathers of packed words: kernel B (the default), kernel
+#: E's entry on the same bytes, and ``index_select`` of the overlapping tile
+#: view (the counterpart of the JAX step's XLA take)
+GATHER_MODES = ("dma", "block", "take")
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0,
@@ -374,6 +383,8 @@ def tile_counts_gather(
     tile_elems: int,
     k_cap: int,
     p_cap: int,
+    *,
+    gather: str = "dma",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused phases 1 + 2 for one grid chunk, enqueued on the current
     stream with no host sync.
@@ -381,17 +392,19 @@ def tile_counts_gather(
     ``words``: the chunk's packed words, ``(T+1) * tile_elems`` elements.
     Returns device tensors ``(counts int32[T], combo int32)``: kernel A's
     counts, then ``nonzero_capped`` picks the first ``k_cap`` hot tiles,
-    kernel B gathers each with its halo tile, the exact phase 2 re-checks
-    every window of the slots with the full check tables, and the combo
-    buffer packs header, hot ids and counts, candidate offsets and recovery
-    values (layout ``host.COMBO_HEADER``)."""
+    kernel B gathers each with its halo tile (or the *gather* of
+    :data:`GATHER_MODES`), the exact phase 2 re-checks every window of the
+    slots with the full check tables, and the combo buffer packs header,
+    hot ids and counts, candidate offsets and recovery values (layout
+    ``host.COMBO_HEADER``)."""
     counts = tile_counts(
         words, prefilter_operand(pat, words.device),
         width=np.dtype(pat.dtype).itemsize, tile_elems=tile_elems,
         length=pat.length, valid_count=valid_count,
     )
     return counts, _hot_slots_and_combo(
-        pat, words, counts, valid_count, tile_elems, k_cap, p_cap
+        pat, words, counts, valid_count, tile_elems, k_cap, p_cap,
+        gather=gather,
     )
 
 
@@ -450,20 +463,29 @@ def all_windows_counts(pat: CompiledPattern, data: torch.Tensor,
 
 
 def _hot_slots_and_combo(pat, data, counts, valid_count, tile_elems, k_cap,
-                         p_cap) -> torch.Tensor:
+                         p_cap, *, gather: str = "dma") -> torch.Tensor:
     """The fused step's tail after the counts (``_hot_slots_and_combo``):
     the first ``k_cap`` hot tiles gathered with their halo tiles (kernel B
-    from packed int32 words, kernel E from u8/u16 elements), the exact
-    phase 2 over them, and the pattern's combo buffer."""
+    from packed int32 words, or the *gather* of :data:`GATHER_MODES`;
+    kernel E from u8/u16 elements), the exact phase 2 over them, and the
+    pattern's combo buffer."""
+    _check(gather in GATHER_MODES, f"gather must be one of {GATHER_MODES}")
     width = np.dtype(pat.dtype).itemsize
     L = pat.length
     hot = nonzero_capped(counts, k_cap)
     nhot = (counts > 0).sum(dtype=torch.int32)
-    if data.dtype == torch.int32:
+    if data.dtype != torch.int32:
+        slots = gather_tiles_block(data, hot, tile_elems=tile_elems)
+    elif gather == "dma":
         raw = gather_tiles(data, hot, width=width, tile_elems=tile_elems)
         slots = as_elements(raw, width)
-    else:
-        slots = gather_tiles_block(data, hot, tile_elems=tile_elems)
+    elif gather == "block":
+        slots = gather_tiles_block(as_elements(data, width), hot,
+                                   tile_elems=tile_elems)
+    else:  # "take": tile t and its halo tile are row t of the view
+        tile_bytes = tile_elems * width
+        view = data.view(torch.uint8).unfold(0, 2 * tile_bytes, tile_bytes)
+        slots = as_elements(torch.index_select(view, 0, hot), width)
     _, _, exp_exact, recovery = pattern_device_args(pat, data.device)
     n_cand, flat_idx, v0, v1 = exact_phase2(
         slots[:, : tile_elems + L - 1], hot, nhot,

@@ -23,9 +23,15 @@ Stages (``--stage``, comma-separated; default ``floor,roofline,kernel``):
             8 KiB count tiles, "abcde" and "ab*de"
   sol       speed-of-light ratio: counts kernel A against the pure-load
             kernel J (``ops.scan_cuda.load_sum``) at the same 2 MiB tiles
+  ab        same-process A/B of the hot-tile gathers under the fused
+            wildcard step ("ab*de", 8 KiB tiles, the high hot-tile regime):
+            kernel B (``dma``, the default), kernel E's entry on the same
+            bytes (``block``) and ``index_select`` of the tile view
+            (``take``, the counterpart of the XLA take); the three combo
+            buffers must be equal before any record is printed
 
-The JAX probe's ``ab`` stage is not ported: its formulation switch has no
-counterpart, and its gather comparison waits (``ROADMAP.md``).
+The JAX probe's ``ab`` part (a), its counts-kernel formulation switch, has
+no counterpart: the CUDA kernels have one formulation.
 
 ``python -m monkey_moore_tpu_torch.perf_probe --mb 4096 --stage all`` runs
 on the card; ``--device cpu`` runs the kernels' plain versions, for tests
@@ -46,16 +52,18 @@ from .bench import make_corpus, sol_times, tile_view
 from .dense import (
     extract_hot_tiles_device,
     fused_count_extract,
+    fused_count_extract_start,
     resolve_device,
     tile_counts,
 )
 from .ops.host import LANES
-from .ops.scan_cuda import launch_counts, reset_launch_counts
+from .ops.scan_cuda import GATHER_MODES, launch_counts, reset_launch_counts
 from .pattern import compile_pattern
 
-__all__ = ["STAGES", "emit", "main"]
+__all__ = ["STAGES", "emit", "gather_combos", "main"]
 
-STAGES = ("floor", "roofline", "kernel", "variants", "e2e", "fused", "sol")
+STAGES = ("floor", "roofline", "kernel", "variants", "e2e", "fused", "sol",
+          "ab")
 SEED = 0  # the corpus's generator seed
 
 
@@ -81,6 +89,14 @@ def make_timeit(iters):
     return timeit
 
 
+def gather_combos(pat, data, n: int, tile_elems: int) -> dict:
+    """The fused step's combo buffer (host int32 array) with each gather of
+    :data:`GATHER_MODES` on the same words."""
+    return {gm: fused_count_extract_start(pat, data, n, tile_elems=tile_elems,
+                                          gather=gm).combo_dev.cpu().numpy()
+            for gm in GATHER_MODES}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mb", type=int, default=4096, help="corpus MiB (u8)")
@@ -101,7 +117,7 @@ def main(argv=None) -> int:
         stages = set(STAGES)
     unknown = stages - set(STAGES)
     if unknown:
-        print(f"perf_probe: stages not ported: {sorted(unknown)}",
+        print(f"perf_probe: unknown stages: {sorted(unknown)}",
               file=sys.stderr)
         return 2
     if torch.device(args.device).type == "cuda" and not (
@@ -232,6 +248,26 @@ def main(argv=None) -> int:
             "launches": launch_counts["load_sum"],
             "note": "1.0 = scan at its memory pipeline's speed of light",
         }), flush=True)
+
+    if "ab" in stages:
+        # gathers under the fused wildcard step, same process (the JAX
+        # probe's part (b)); the three must agree before any is timed
+        te = 8 * LANES
+        data = tile_view(words, n, te)
+        pw = compile_pattern("ab*de", "*")
+        combos = gather_combos(pw, data, n, te)
+        if any(not np.array_equal(c, combos["dma"]) for c in combos.values()):
+            print("perf_probe: the gathers' combo buffers differ",
+                  file=sys.stderr)
+            return 1
+        for gm in GATHER_MODES:
+            def gstep(gm=gm):
+                return fused_count_extract(pw, data, n, tile_elems=te,
+                                           gather=gm)[2]
+
+            info = gstep()
+            emit(f"ab_gather_{gm}_fused_wildcard", timeit(gstep), n,
+                 hot=info.hot_tiles, fallback=info.fallback)
     return 0
 
 

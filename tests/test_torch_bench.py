@@ -217,12 +217,18 @@ def test_perf_probe_names_are_the_jax_probes(capsys):
         assert name in literal or any(
             re.fullmatch(p, name) for p in patterns), name
     assert {"hbm_read_sum", "swar_counts_tile_rows_2048", "hot_tiles",
-            "e2e_full_step", "sol_ratio"} <= set(names)
+            "e2e_full_step", "sol_ratio",
+            "ab_gather_take_fused_wildcard"} <= set(names)
 
 
 def test_perf_probe_refuses_the_unported_stage(capsys):
-    assert perf_probe.main(["--device", "cpu", "--stage", "ab"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    """Every stage of the JAX probe is accepted now, ``ab`` among them (its
+    part (b), the gathers); a stage it does not have still exits 2."""
+    names = _probe_names("ab", capsys)
+    assert names[2:] == [f"ab_gather_{gm}_fused_wildcard"
+                         for gm in ("dma", "block", "take")]
+    assert perf_probe.main(["--device", "cpu", "--stage", "ab,abc"]) == 2
+    assert "unknown stages: ['abc']" in capsys.readouterr().err
 
 
 def test_bench_fused_step_equals_jax(monkeypatch):

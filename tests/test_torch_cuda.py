@@ -752,3 +752,37 @@ def test_sharded_fused_step_equals_cpu(cuda, tile_elems):
     assert got[0].tolist() == want[0].tolist()
     assert got[1].tolist() == want[1].tolist()
     assert got[2] == want[2] and (got[3] is None) == (want[3] is None)
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_gather_modes_give_equal_combos(cuda, width):
+    """``perf_probe``'s ``ab`` gathers on the card (kernel B, kernel E's
+    entry on the same bytes, ``index_select`` of the tile view): the same
+    combo buffer, equal to the CPU step's, with more hot tiles than the
+    step's ``k_cap`` in one case."""
+    from monkey_moore_tpu_torch import bench, perf_probe
+    from monkey_moore_tpu_torch.dense import fused_count_extract_start
+    from monkey_moore_tpu_torch.ops.host import LANES
+
+    te = 8 * LANES
+    n_bytes = 64 * te * width
+    pat = compile_pattern("ab*de", "*",
+                          dtype=np.uint8 if width == 1 else np.uint16)
+    n = n_bytes // width
+    for plants in (5, 60):
+        words = bench.make_corpus(n_bytes, plants, "cpu",
+                                  halo_bytes=te * width)
+        elems = words.view(torch.uint8 if width == 1 else torch.int16)
+        kw = torch.tensor(pat.keyword, dtype=elems.dtype)
+        for pos in np.linspace(1, n - 5, plants).astype(int):
+            elems[pos : pos + 5] = kw
+        data = bench.tile_view(words, n_bytes, te * width)
+        pending = fused_count_extract_start(pat, data, n, tile_elems=te)
+        want = pending.combo_dev.numpy()
+        assert (want[0] > pending.k_cap) == (plants == 60)
+        scan_cuda.reset_launch_counts()
+        combos = perf_probe.gather_combos(pat, data.to(cuda), n, te)
+        assert scan_cuda.launch_counts["gather_tiles"] == 1
+        assert scan_cuda.launch_counts["gather_tiles_block"] == 1
+        for gm, combo in combos.items():
+            assert np.array_equal(combo, want), (gm, plants)

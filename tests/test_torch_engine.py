@@ -316,7 +316,13 @@ assert bench_scaling.main(["--device", "cpu", "--mb", "1", "--iters", "1",
 os.environ.update(MMTPU_BENCH_ITERS="3", MMTPU_BENCH_WARMUP="1")
 assert bench.main(["--device", "cpu", "--mb", "4"]) == 0
 assert perf_probe.main(["--device", "cpu", "--mb", "4", "--iters", "1",
-                        "--stage", "sol,fused"]) == 0
+                        "--stage", "sol,fused,ab"]) == 0
+from monkey_moore_tpu_torch import bench_all, bench_baseline_configs
+out = os.path.join(os.path.dirname(sys.argv[1]), "harness.json")
+assert bench_all.main(["--device", "cpu", "--mb", "1", "--iters", "1",
+                       "--warmup", "0", "--no-sweep", "--json", out]) == 0
+assert bench_baseline_configs.main(["--cpu", "--scale", "1024", "--iters",
+                                    "1", "--json", out]) == 0
 assert "jax" not in sys.modules, "the port loaded jax"
 loaded = sorted(m for m in sys.modules if m == "monkey_moore_tpu"
                 or m.startswith("monkey_moore_tpu."))
@@ -328,8 +334,10 @@ print("no-jax ok")
 def test_port_never_imports_jax(tmp_path):
     """In a fresh process: the engine (on one device and on a mesh), a
     keyword batch (on one device and on a mesh), ``dense_search``, the
-    mesh-size bench, a CPU bench and a CPU perf_probe run load neither jax
-    nor any module of the JAX package."""
+    mesh-size bench, a CPU bench, a CPU perf_probe run (``ab`` among its
+    stages), a small ``bench_all`` and a small ``bench_baseline_configs``
+    (its multi-host workers included) load neither jax nor any module of
+    the JAX package."""
     path = write_file(tmp_path, FILE_DATA_8)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
