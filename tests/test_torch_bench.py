@@ -23,7 +23,6 @@ Tolerance: exact equality — every value is an integer.
 
 import ctypes
 import json
-import os
 import re
 import subprocess
 import sys
@@ -43,6 +42,7 @@ from monkey_moore_tpu_torch import bench, counts_bench, gather_bench, perf_probe
 from monkey_moore_tpu_torch.dense import fused_count_extract
 from monkey_moore_tpu_torch.ops import scan_cuda
 from monkey_moore_tpu_torch.pattern import compile_pattern
+from test_torch_engine import port_subprocess_env
 
 ROOT = Path(__file__).resolve().parent.parent
 LANES32 = 256  # ``bench.py``'s lanes32 = LANES // 4
@@ -522,10 +522,11 @@ def test_compile_library_needs_nvcc(tmp_path, monkeypatch):
 def test_entry_points_need_a_card(module):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the run would start")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # alone, one thread: 4.0 s at most; limit 120 s
     proc = subprocess.run(
         [sys.executable, "-m", f"monkey_moore_tpu_torch.{module}"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+        cwd=ROOT, env=port_subprocess_env(), capture_output=True, text=True,
+        timeout=120,
     )
     assert proc.returncode == 1, proc.stderr
     assert "no CUDA device" in proc.stderr and proc.stdout == ""

@@ -12,7 +12,6 @@ every command that searches exits 1 with an error naming CUDA.
 Tolerance: exact equality — every output is text or bytes.
 """
 
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +23,7 @@ import torch
 from monkey_moore_tpu import cli as jcli
 from monkey_moore_tpu_torch import cli as tcli
 from common import HIRAGANA_SEQ
+from test_torch_engine import port_subprocess_env
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -235,10 +235,10 @@ def test_python_dash_m_matches_in_process_and_loads_no_jax(rom, capsys):
     ``runpy`` as ``-m`` runs it, so the process can report its modules)."""
     argv = ["search", str(rom), "dr*gon", "--previews", "--cpu",
             "--no-progress"]
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # alone, one thread: 3.4 s; limit 300 s
     proc = subprocess.run([sys.executable, "-c", _MODULE_RUN, *argv],
-                          cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=300)
+                          cwd=ROOT, env=port_subprocess_env(),
+                          capture_output=True, text=True, timeout=300)
     rc, out, err = run_main(tcli.main, argv, capsys)
     assert proc.returncode == rc == 0, proc.stderr
     assert proc.stdout == out and out.count("\n") == 2

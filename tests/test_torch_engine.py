@@ -285,15 +285,39 @@ def test_default_device_needs_cuda():
         SearchEngine(tconfig.SearchConfig(keyword="text"))
 
 
-_NO_JAX = """
-import os, sys
+def port_subprocess_env():
+    """The environment of a torch process that a port test starts: the repo
+    on the path, and one thread.  Each torch process otherwise opens an
+    intra-op pool as wide as the machine, and a test run's parallel workers
+    with their own children then share the cores many times over."""
+    return dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+                MKL_NUM_THREADS="1")
+
+
+#: every no-jax case's first line, and what it asserts after its entry
+#: point has run
+_NO_JAX_HEAD = "import os, sys\n"
+_NO_JAX_TAIL = """
+assert "jax" not in sys.modules, "the port loaded jax"
+loaded = sorted(m for m in sys.modules if m == "monkey_moore_tpu"
+                or m.startswith("monkey_moore_tpu."))
+assert not loaded, f"the port loaded the JAX package: {loaded}"
+print("no-jax ok")
+"""
+
+#: id -> (time limit in s, script run with the 8-bit test file as argv[1]).
+#: Each limit is about 20x the case's slowest wall time of three runs alone
+#: with one thread on an 8-core x86 host (beside each case), and never under
+#: 10x.
+_NO_JAX = {
+    # alone: 3.7 s; limit 90 s
+    "searches": (90, """
 import numpy as np
 from monkey_moore_tpu_torch.config import SearchConfig
 from monkey_moore_tpu_torch.engine import SearchEngine
 from monkey_moore_tpu_torch.multi import MultiSearcher
 from monkey_moore_tpu_torch.dense import dense_search
 from monkey_moore_tpu_torch.pattern import compile_pattern
-from monkey_moore_tpu_torch import bench, perf_probe
 cfg = SearchConfig(file_path=sys.argv[1], keyword="text",
                    device_chunk_bytes=64, host_latency_threshold_bytes=0)
 offsets = [r.offset for r in SearchEngine(cfg, device="cpu").run()]
@@ -303,7 +327,6 @@ assert [r.offset for r in batch[0]] == offsets, batch
 data = np.fromfile(sys.argv[1], dtype=np.uint8)
 found = dense_search(compile_pattern("text"), data, device="cpu")
 assert [o for o, _ in found] == offsets, found
-from monkey_moore_tpu_torch import bench_scaling
 from monkey_moore_tpu_torch.parallel import resident, sharded, multihost
 cfg.devices = ["cpu"] * 4
 mesh = [r.offset for r in SearchEngine(cfg, device="cpu").run()]
@@ -311,38 +334,75 @@ assert mesh == offsets, mesh
 batch = MultiSearcher(sys.argv[1], device="cpu", devices=["cpu"] * 2).search(
     ["text", "none"])
 assert [r.offset for r in batch[0]] == offsets, batch
+"""),
+    # alone: 8.6 s; limit 180 s
+    "bench_scaling": (180, """
+from monkey_moore_tpu_torch import bench_scaling
 assert bench_scaling.main(["--device", "cpu", "--mb", "1", "--iters", "1",
                            "--devices", "1", "2"]) == 0
+"""),
+    # alone: 6.1 s; limit 120 s
+    "bench": (120, """
+from monkey_moore_tpu_torch import bench
 os.environ.update(MMTPU_BENCH_ITERS="3", MMTPU_BENCH_WARMUP="1")
 assert bench.main(["--device", "cpu", "--mb", "4"]) == 0
+"""),
+    # alone: 6.4 s; limit 120 s
+    "perf_probe": (120, """
+from monkey_moore_tpu_torch import perf_probe
 assert perf_probe.main(["--device", "cpu", "--mb", "4", "--iters", "1",
                         "--stage", "sol,fused,ab"]) == 0
-from monkey_moore_tpu_torch import bench_all, bench_baseline_configs
+"""),
+    # alone: 4.4 s; limit 90 s
+    "bench_all": (90, """
+from monkey_moore_tpu_torch import bench_all
 out = os.path.join(os.path.dirname(sys.argv[1]), "harness.json")
 assert bench_all.main(["--device", "cpu", "--mb", "1", "--iters", "1",
                        "--warmup", "0", "--no-sweep", "--json", out]) == 0
+"""),
+    # alone: 14.5 s; limit 300 s
+    "bench_baseline_configs": (300, """
+from monkey_moore_tpu_torch import bench_baseline_configs
+out = os.path.join(os.path.dirname(sys.argv[1]), "harness.json")
 assert bench_baseline_configs.main(["--cpu", "--scale", "1024", "--iters",
                                     "1", "--json", out]) == 0
-assert "jax" not in sys.modules, "the port loaded jax"
-loaded = sorted(m for m in sys.modules if m == "monkey_moore_tpu"
-                or m.startswith("monkey_moore_tpu."))
-assert not loaded, f"the port loaded the JAX package: {loaded}"
-print("no-jax ok")
-"""
+"""),
+    # alone: 3.9 s; limit 90 s
+    "import_all": (90, """
+import importlib, pkgutil
+from pathlib import Path
+import monkey_moore_tpu_torch as port
+names = sorted(m.name for m in pkgutil.walk_packages(
+    port.__path__, "monkey_moore_tpu_torch.")
+    if m.name != "monkey_moore_tpu_torch.__main__")
+root = Path(port.__file__).parent
+files = sorted(".".join(("monkey_moore_tpu_torch",) + p.relative_to(
+    root).with_suffix("").parts).removesuffix(".__init__")
+    for p in root.rglob("*.py") if p.name != "__main__.py")
+files.remove("monkey_moore_tpu_torch")
+assert names == files, (names, files)
+for name in names:
+    importlib.import_module(name)
+"""),
+}
 
 
-def test_port_never_imports_jax(tmp_path):
-    """In a fresh process: the engine (on one device and on a mesh), a
-    keyword batch (on one device and on a mesh), ``dense_search``, the
-    mesh-size bench, a CPU bench, a CPU perf_probe run (``ab`` among its
-    stages), a small ``bench_all`` and a small ``bench_baseline_configs``
-    (its multi-host workers included) load neither jax nor any module of
-    the JAX package."""
+@pytest.mark.parametrize("case", list(_NO_JAX), ids=list(_NO_JAX))
+def test_port_never_imports_jax(case, tmp_path):
+    """In a fresh single-threaded process, one entry point of the port: the
+    engine (on one device and on a mesh), a keyword batch (on one device and
+    on a mesh) and ``dense_search``; the mesh-size bench; a CPU bench; a CPU
+    perf_probe run (``ab`` among its stages); a small ``bench_all``; a small
+    ``bench_baseline_configs`` (its multi-host workers included); or an
+    import of every module of the package but ``__main__`` (which would run
+    the CLI).  None loads jax or any module of the JAX package."""
+    limit, script = _NO_JAX[case]
     path = write_file(tmp_path, FILE_DATA_8)
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, str(path)], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=120,
+        [sys.executable, "-c", _NO_JAX_HEAD + script + _NO_JAX_TAIL,
+         str(path)],
+        cwd=ROOT, env=port_subprocess_env(), capture_output=True, text=True,
+        timeout=limit,
     )
     assert proc.returncode == 0, proc.stderr
     assert "no-jax ok" in proc.stdout
@@ -392,9 +452,11 @@ def test_foreign_import_check_finds_them(tmp_path):
 def test_chip_smoke_fails_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the smoke run would start")
+    # alone, one thread: 3.8 s; limit 120 s
     proc = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
-        capture_output=True, text=True, timeout=120,
+        env=port_subprocess_env(), capture_output=True, text=True,
+        timeout=120,
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
@@ -412,10 +474,11 @@ sys.exit(rc)
 def test_breakdown_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the breakdown would start")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # alone, one thread: 4.1 s; limit 120 s
     proc = subprocess.run(
-        [sys.executable, "-c", _BREAKDOWN], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=120,
+        [sys.executable, "-c", _BREAKDOWN], cwd=ROOT,
+        env=port_subprocess_env(), capture_output=True, text=True,
+        timeout=120,
     )
     assert proc.returncode == 1, proc.stderr
     assert "no CUDA device" in proc.stderr and proc.stdout == ""

@@ -32,6 +32,7 @@ from monkey_moore_tpu_torch.dense import fused_count_extract_start
 from monkey_moore_tpu_torch.ops.host import LANES
 from monkey_moore_tpu_torch.ops.scan_cuda import GATHER_MODES
 from monkey_moore_tpu_torch.pattern import compile_pattern
+from test_torch_engine import port_subprocess_env
 
 ROOT = Path(__file__).resolve().parent.parent
 ROW_KEYS = ("config", "size_bytes", "route", "results", "planted_found")
@@ -154,10 +155,11 @@ def terminal():
 
 
 def test_tui_smoke_cpu_passes_its_eight_checks(terminal):
+    # alone, one thread: 14.1 s; limit 300 s
     proc = subprocess.run(
         [sys.executable, "-m", "monkey_moore_tpu_torch.tui_smoke", "--cpu"],
-        cwd=ROOT, capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=port_subprocess_env())
     assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
     ok = [line for line in proc.stdout.splitlines()
           if line.startswith("  OK ")]
