@@ -105,10 +105,25 @@
    combo buffers; (d) ``tui_smoke`` on the card (its 50 KB ROM rides the
    host route and launches no kernel); (e) the host/device crossover: one
    8-bit search at 4, 16 and 64 MiB on the host route and on the device
-   route (``host_latency_threshold_bytes=0``), first and best repeat.
+   route (``host_latency_threshold_bytes=0``), first and best repeat;
+13. drives the exact match-and-compact scan: (a) kernel K
+   (``scan_cuda.scan_chunk``) against its plain version on a 512 MiB chunk
+   of seeded random words (phase 3's size) as u8 and as u16 elements, for
+   "abcde" (the signed branch) and "ab*de" (the unsigned one) at capacity
+   4096, and for "abcde" with more plants than the capacity (the true
+   count, the first 4096 offsets in order, every value and filler slot
+   equal), each timed back to back beside its bound and the plain
+   version's time; (b) ``graft_entry.entry()`` on the card, its three
+   outputs equal to ``scan_torch.scan_chunk`` on the CPU; (c)
+   ``parallel.sharded_candidates`` on ``["cuda:0"] * 4`` over phase 4's
+   file as u8 elements for phase 4's 8-bit keywords (every plant found,
+   equal to ``dense.dense_candidates`` on the card), over its even 16-bit
+   big-endian grid for a 16-bit wildcard keyword, and over a repeating
+   2-byte pattern at ``capacity_per_shard=8``, which must retry; (d)
+   ``graft_entry.dryrun_multichip(4)``.
 
-Phases 9-11 run after phase 7, while phase 4's file exists; phase 8 runs
-after them and phase 12 last.
+Phases 9-11 and 13 run after phase 7, while phase 4's file exists; phase 8
+runs after them and phase 12 last.
 
 Phase 3 also holds kernel I against its plain version and ``torch.sum`` on
 the 512 MiB chunk buffer; phase 8 times it on the first 4 GiB as well
@@ -116,7 +131,8 @@ the 512 MiB chunk buffer; phase 8 times it on the first 4 GiB as well
 counts kernels A, C and D, the gathers, and kernel I beside ``torch.sum``)
 are timed by ``bench.back_to_back_ms``: many launches between one pair of
 CUDA events, enqueued while a spin kernel holds the stream.  Each path runs with the
-launch counts set to 0 just before it and read just after, and every
+launch counts set to 0 just before it and read just after (phase 13's
+``compact`` path: (b)-(d)), and every
 gather launch on phases 4-9 must have 16-byte aligned pointers and tile
 size (the bulk route; the gate's tiny chunks may take the edge copy).  The last line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's ``nvidia-smi`` name
@@ -1784,6 +1800,183 @@ def harness_phase(torch, bench_record) -> dict:
     return launches
 
 
+def compact_kernel_checks(torch):
+    """Phase 13 (a): kernel K against its plain version on a 512 MiB chunk
+    of seeded random words, the size of phase 3's, as u8 and as u16
+    elements, for "abcde" (the signed branch) and "ab*de" (the unsigned
+    one) at capacity 4096, and for "abcde" with more plants than the
+    capacity: the true count, every offset in order, every value, the
+    filler slots included.  Each regime is timed (K back to back, the
+    plain version by CUDA-event medians) beside its bound.  Returns the
+    kernel's row of the kernels line without launch counts."""
+    import numpy as np
+
+    from monkey_moore_tpu_torch.bench import back_to_back_ms, bound
+    from monkey_moore_tpu_torch.ops import scan_cuda
+    from monkey_moore_tpu_torch.ops.scan_torch import pattern_device_args
+    from monkey_moore_tpu_torch.pattern import compile_pattern
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    capacity = 4096
+    err, regimes = 0, []
+    cases = [(1, "abcde", 0, 64), (1, "ab*de", "*", 64), (2, "abcde", 0, 64),
+             (2, "ab*de", "*", 64), (1, "abcde", 0, capacity + 904)]
+    for width, kw, wc, n_plants in cases:
+        pat = compile_pattern(kw, wc,
+                              dtype=np.uint8 if width == 1 else np.uint16)
+        words = random_words(torch, gen, CHUNK)
+        n = CHUNK // width
+        valid = n - 1234
+        step = (valid - pat.length) // n_plants
+        plants = [1 + i * step + (i % 3) for i in range(n_plants)]
+        plant_words(torch, words, pat, plants, 5)
+        data = words.view(torch.uint8 if width == 1 else torch.uint16)
+        args = (data, valid, *pattern_device_args(pat, "cuda"))
+        kwargs = dict(length=pat.length, signed_compare=pat.signed_compare,
+                      capacity=capacity)
+        got = scan_cuda.scan_chunk(*args, **kwargs)
+        want = scan_cuda.scan_chunk_plain(*args, **kwargs)
+        count = int(want[0])
+        check(count >= n_plants, f"phase 13 K {kw!r} u{8 * width}: "
+              f"{count} matches, {n_plants} planted")
+        check(int(got[0]) == count, f"phase 13 K {kw!r} u{8 * width}: count "
+              f"{int(got[0])}, plain {count}")
+        offs = want[1][: min(count, capacity)].tolist()
+        check(set(p for p in plants if p <= offs[-1]) <= set(offs),
+              f"phase 13 K {kw!r} u{8 * width}: plants missing")
+        for g, w in zip(got[1:], want[1:]):
+            if g.dtype == torch.uint16:
+                g, w = g.view(torch.int16), w.view(torch.int16)
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        k_ms, k_host = back_to_back_ms(
+            lambda: scan_cuda.scan_chunk(*args, **kwargs), 50)
+        plain_ms = time_ms(
+            torch, lambda: scan_cuda.scan_chunk_plain(*args, **kwargs), 3)
+        # the array read once, the outputs written once; every window start
+        # needs the first check's difference and compare
+        bound_ms, bound_by = bound(
+            n * width + 4 + capacity * (4 + 2 * width),
+            2 * (valid - pat.length + 1))
+        regimes.append({"width": width, "keyword": kw, "planted": n_plants,
+                        "count": count, "capacity": capacity, "ms": k_ms,
+                        "host_ms": k_host, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"phase 13 K {kw!r} u{8 * width} over {CHUNK // MIB} MiB: "
+              f"count {count} ({n_plants} planted), capacity {capacity}: K "
+              f"{k_ms:.4f} ms (host {k_host:.4f}) vs {plain_ms:.4f} ms "
+              f"plain, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        del words, data, args, got, want
+        torch.cuda.empty_cache()
+    check(err == 0, f"kernel K differs from its plain version by {err}")
+    head = regimes[0]
+    return {"name": "scan_chunk", "route": "cuda",
+            "source": "monkey_moore_tpu_torch/csrc/match_compact.cu",
+            "replaces": "monkey_moore_tpu/ops/scan_jnp.py:618",
+            "replaces_kind": "XLA fusion, no pl.pallas_call",
+            "max_abs_err": err, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "regimes": regimes}
+
+
+def compact_phase(torch, path: Path, searches):
+    """Phase 13: the exact match-and-compact scan.  (a) kernel K against
+    its plain version (:func:`compact_kernel_checks`); then, with the
+    launch counts set to 0: (b) ``graft_entry.entry()`` on the card, its
+    three outputs equal to ``scan_torch.scan_chunk`` on the CPU for the
+    same data; (c) ``parallel.sharded_candidates`` on ``["cuda:0"] * 4``
+    over phase 4's file read as u8 elements (phase 4's 8-bit keywords,
+    every plant found, equal to ``dense.dense_candidates`` on the card),
+    over its even 16-bit big-endian grid for a 16-bit wildcard keyword,
+    and over a repeating 2-byte pattern at ``capacity_per_shard=8``, which
+    must retry; (d) ``graft_entry.dryrun_multichip(4)``.  Returns K's row
+    of the kernels line and the launch counts of (b)-(d)."""
+    import numpy as np
+
+    from monkey_moore_tpu_torch import graft_entry
+    from monkey_moore_tpu_torch.dense import dense_candidates
+    from monkey_moore_tpu_torch.ops import scan_cuda, scan_torch
+    from monkey_moore_tpu_torch.parallel import make_mesh, sharded_candidates
+    from monkey_moore_tpu_torch.pattern import compile_pattern
+
+    t_phase = time.perf_counter()
+    row = compact_kernel_checks(torch)
+    torch.cuda.empty_cache()
+
+    scan_cuda.reset_launch_counts()
+    # (b) the flagship single-device step
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = scan_torch.scan_chunk(
+        *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args),
+        length=5, signed_compare=True, capacity=4096)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "phase 13 entry: differs from scan_torch.scan_chunk on the CPU")
+    print(f"phase 13 entry: count {int(got[0])}, offsets and values equal "
+          "to scan_torch.scan_chunk on the CPU", flush=True)
+
+    # (c) the mesh scan over phase 4's file
+    mesh = make_mesh(["cuda:0"] * 4)
+    raw = np.fromfile(path, dtype=np.uint8)
+    for name in ("8-bit", "8-bit wildcard"):
+        kwargs, planted = searches[name]
+        pat = compile_pattern(kwargs["keyword"], kwargs.get("wildcard", 0))
+        t0 = time.perf_counter()
+        offs, vals = sharded_candidates(pat, raw, mesh)
+        wall = time.perf_counter() - t0
+        single, single_vals = dense_candidates(pat, raw, device="cuda")
+        check(offs.tolist() == single.tolist()
+              and vals.tolist() == single_vals.tolist(),
+              f"phase 13 sharded_candidates {name!r}: differs from "
+              "dense_candidates")
+        missing = sorted(set(planted) - set(offs.tolist()))
+        check(not missing, f"phase 13 sharded_candidates {name!r}: not "
+              f"found {missing}")
+        print(f"phase 13 sharded_candidates {name!r} on 4 shards over "
+              f"{len(raw)} elements: {len(offs)} offsets (= dense_candidates"
+              f"), plants found, {wall:.3f} s", flush=True)
+    kwargs, planted = searches["16-bit BE"]
+    grid = raw.view(">u2").astype(np.uint16)  # the even alignment's grid
+    pat16 = compile_pattern(kwargs["keyword"][:2] + "*"
+                            + kwargs["keyword"][3:], "*", dtype=np.uint16)
+    offs, _ = sharded_candidates(pat16, grid, mesh)
+    single, _ = dense_candidates(pat16, grid, device="cuda")
+    even = [p // 2 for p in planted if p % 2 == 0]
+    check(offs.tolist() == single.tolist() and set(even) <= set(offs.tolist()),
+          "phase 13 sharded_candidates 16-bit wildcard: differs from "
+          "dense_candidates or misses a plant")
+    print(f"phase 13 sharded_candidates {pat16.keyword!r} u16 BE on 4 "
+          f"shards: {len(offs)} offsets (= dense_candidates), plants {even} "
+          "found", flush=True)
+    del raw, grid
+    tiled = np.tile(np.array([97, 98], dtype=np.uint8), MIB // 2)
+    before = scan_cuda.launch_counts["scan_chunk"]
+    pat = compile_pattern("abab")
+    offs, _ = sharded_candidates(pat, tiled, mesh, capacity_per_shard=8)
+    steps = (scan_cuda.launch_counts["scan_chunk"] - before) // len(mesh)
+    single, _ = dense_candidates(pat, tiled, device="cuda")
+    check(offs.tolist() == single.tolist() and len(offs) == MIB // 2 - 1
+          and steps > 1, f"phase 13 overflow retry: {len(offs)} offsets "
+          f"in {steps} steps")
+    print(f"phase 13 sharded_candidates overflow: {len(offs)} matches from "
+          f"capacity 8 in {steps} steps (= dense_candidates)", flush=True)
+
+    # (d) the mesh dry run
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(4)
+    print(f"phase 13 dryrun_multichip(4) on cuda:0 x 4 passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the dry run's tiny engine searches may take the gathers' edge copy
+    launches = dict(scan_cuda.launch_counts)
+    check(launches["scan_chunk"] > 0,
+          f"phase 13: kernel K not launched: {launches}")
+    print(f"phase 13 launches on the compact path: {launches}; wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row, launches
+
+
 def main() -> int:
     import torch
 
@@ -1826,11 +2019,14 @@ def main() -> int:
         launches["gate"] = gate_phase(torch)
         launches["mesh"], launches["multihost"] = mesh_phase(
             torch, path, searches, resident, batches, batch_found)
+        compact_row, launches["compact"] = compact_phase(torch, path,
+                                                         searches)
+        kernels.append(compact_row)
     launches["bench"], load_row, bench_record = bench_phase(torch, err_i)
     kernels.append(load_row)
     launches.update(harness_phase(torch, bench_record))
     for row in kernels:
-        by_path = {name: counts[row["name"]]
+        by_path = {name: counts.get(row["name"], 0)
                    for name, counts in launches.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path

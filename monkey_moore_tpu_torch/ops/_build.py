@@ -63,6 +63,13 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
     ],
+    "mm_match_compact": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """The fused device step's kernels — counterpart of the JAX package's
 ``ops/scan_pallas.py`` (the single-device part of it).
 
-Six wrappers over three kernels, hand-written in CUDA C++ for Hopper
+The wrappers of the kernels, hand-written in CUDA C++ for Hopper
 (``csrc/``):
 
 - :func:`tile_counts` (kernel A, ``csrc/tile_counts.cu``) replaces
@@ -18,7 +18,10 @@ Six wrappers over three kernels, hand-written in CUDA C++ for Hopper
   (``csrc/gather_tiles.cu``) on an element buffer;
 - :func:`load_sum` (kernels I and J, ``csrc/load_sum.cu``) replaces the
   speed-of-light load kernel of ``bench.py`` and ``tools/perf_probe.py``
-  (``load_kernel`` / ``load_call``).
+  (``load_kernel`` / ``load_call``);
+- :func:`scan_chunk` (kernel K, ``csrc/match_compact.cu``) computes
+  ``scan_jnp.scan_chunk``, the exact match-and-compact scan that XLA fuses
+  for the JAX package (no Pallas kernel there).
 
 Each wrapper checks its operands, allocates its output, and launches its
 kernel on the current stream for a CUDA tensor, or runs its plain PyTorch
@@ -51,6 +54,7 @@ import torch
 
 from ..pattern import CompiledPattern
 from .host import canonical_check_tables, multi_pattern_tables, prefilter_checks
+from . import scan_torch
 from .scan_torch import (
     as_elements,
     count_body,
@@ -86,6 +90,9 @@ __all__ = [
     "tile_counts_gather_elems",
     "load_sum",
     "load_sum_plain",
+    "MATCH_SPAN",
+    "scan_chunk",
+    "scan_chunk_plain",
 ]
 
 #: the fused tail's gathers of packed words: kernel B (the default), kernel
@@ -96,7 +103,7 @@ GATHER_MODES = ("dma", "block", "take")
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0,
                  "tile_counts_elems": 0, "gather_tiles_block": 0,
-                 "load_sum": 0}
+                 "load_sum": 0, "scan_chunk": 0}
 
 #: the gathers' launches with 16-byte aligned source, output and tile size
 aligned_launch_counts = {"gather_tiles": 0, "gather_tiles_block": 0}
@@ -670,3 +677,86 @@ def load_sum_plain(words, tile_words) -> Tuple[torch.Tensor, torch.Tensor]:
     sums = _wrap_int32(words[: n_tiles * tile_words].view(
         n_tiles, tile_words).sum(1, dtype=torch.int64))
     return sums, _wrap_int32(sums.sum(dtype=torch.int64))
+
+
+#: window starts per block of kernel K (``kSpan`` in
+#: ``csrc/match_compact.cu``, which refuses a scratch size computed with
+#: another)
+MATCH_SPAN = 8192
+
+
+def scan_chunk(
+    data: torch.Tensor,
+    valid_count: int,
+    shift_cur: torch.Tensor,
+    shift_prev: torch.Tensor,
+    expected: torch.Tensor,
+    recovery: torch.Tensor,
+    *,
+    length: int,
+    signed_compare: bool,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K: ``(count, offsets[capacity], values[capacity, 2])`` of the
+    exact scan of a u8/u16 element array (``scan_jnp.scan_chunk``; the
+    contract of :func:`scan_torch.scan_chunk`): the true match count, the
+    first ``capacity`` window starts that match every check, ascending, -1
+    past the count, and each slot's two recovery elements.  The tables are
+    :func:`scan_torch.pattern_device_args`' int32 tensors beside ``data``;
+    ``valid_count`` is a host int, so nothing waits on the card.  Offsets
+    are int32, so ``data`` holds fewer than 2^31 elements."""
+    _check(data.dtype in (torch.uint8, torch.uint16) and data.dim() == 1
+           and data.is_contiguous(),
+           "data must be a contiguous 1-D uint8 or uint16 tensor")
+    n = data.numel()
+    _check(0 < n < 2**31, f"{n} elements: scan_chunk takes 1 to 2^31 - 1")
+    checks = (shift_cur, shift_prev, expected)
+    _check(all(t.dtype == torch.int32 and t.dim() == 1 and t.is_contiguous()
+               and t.device == data.device
+               and t.shape == shift_cur.shape for t in checks),
+           "the check tables must be contiguous int32[C] tensors beside data")
+    _check(recovery.dtype == torch.int32 and recovery.shape == (2,)
+           and recovery.is_contiguous() and recovery.device == data.device,
+           "recovery must be a contiguous int32[2] tensor beside data")
+    _check(length >= 1 and capacity >= 0, "bad length or capacity")
+    valid_count = int(valid_count)
+    if not _kernel_device(data):
+        return scan_chunk_plain(
+            data, valid_count, shift_cur, shift_prev, expected, recovery,
+            length=length, signed_compare=signed_compare, capacity=capacity,
+        )
+    from ._build import load_library
+
+    lib = load_library()
+    last = min(valid_count, n) - length
+    n_spans = -(-max(0, last + 1) // MATCH_SPAN)
+    dev = data.device
+    scratch = torch.empty(max(1, 2 * n_spans), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    offsets = torch.empty(capacity, dtype=torch.int32, device=dev)
+    values = torch.empty((capacity, 2), dtype=data.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mm_match_compact(
+            data.data_ptr(), n, data.element_size(), valid_count - length,
+            length, shift_cur.data_ptr(), shift_prev.data_ptr(),
+            expected.data_ptr(), int(shift_cur.shape[0]),
+            int(bool(signed_compare)), recovery.data_ptr(), capacity,
+            n_spans, scratch.data_ptr(), count.data_ptr(),
+            offsets.data_ptr(), values.data_ptr(), stream,
+        )
+    _raise_on(rc, "scan_chunk")
+    launch_counts["scan_chunk"] += 1
+    return count, offsets, values
+
+
+def scan_chunk_plain(
+    data, valid_count, shift_cur, shift_prev, expected, recovery, *, length,
+    signed_compare, capacity,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`scan_chunk`
+    (:func:`scan_torch.scan_chunk`)."""
+    return scan_torch.scan_chunk(
+        data, valid_count, shift_cur, shift_prev, expected, recovery,
+        length=length, signed_compare=signed_compare, capacity=capacity,
+    )

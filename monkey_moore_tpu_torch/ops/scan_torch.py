@@ -2,10 +2,14 @@
 package's ``ops/scan_jnp.py``.
 
 The JAX package computes these pieces with XLA, outside any Pallas kernel,
-so the port keeps them as plain PyTorch on the card too.  Every function
-here enqueues work and never synchronises with the host (no
-``torch.nonzero``, boolean-mask indexing, ``.item()`` or host uploads), so
+so the port keeps the fused step's as plain PyTorch on the card too.  They
+enqueue work and never synchronise with the host (no ``torch.nonzero``,
+boolean-mask indexing, ``.item()`` or host uploads), so
 ``dense.fused_count_extract_start`` returns as soon as the step is queued.
+The exact match-and-compact scan (:func:`match_bitmap`,
+:func:`compact_matches`, :func:`scan_chunk`) is the plain version of kernel
+K (``ops/scan_cuda.scan_chunk``), which runs it on the card; like the other
+kernels' plain versions, it reads its check tables back to the host.
 
 Element values travel as int32 tensors holding the unsigned element value:
 torch has no uint16 arithmetic on the CPU, and ``>>`` on int32 is
@@ -32,6 +36,9 @@ __all__ = [
     "count_body",
     "tile_counts_multi",
     "nonzero_capped",
+    "match_bitmap",
+    "compact_matches",
+    "scan_chunk",
     "exact_phase2",
     "fused_body",
     "pack_combo",
@@ -157,6 +164,90 @@ def nonzero_capped(flat: torch.Tensor, cap: int) -> torch.Tensor:
     ranks = torch.arange(1, cap + 1, dtype=torch.int32, device=flat.device)
     idx = torch.searchsorted(csum, ranks, out_int32=True)
     return torch.where(idx < n, idx, 0)
+
+
+def match_bitmap(
+    data: torch.Tensor,
+    valid_count: int,
+    length: int,
+    shift_cur: torch.Tensor,
+    shift_prev: torch.Tensor,
+    expected: torch.Tensor,
+    signed_compare: bool,
+) -> torch.Tensor:
+    """Exact match flag for every window start in ``[0, N - L]``, bool[N-L+1]
+    (``scan_jnp.match_bitmap``; reads the check tables back to the host).
+
+    ``data``: u8/u16 elements; ``shift_cur``, ``shift_prev``, ``expected``:
+    :func:`pattern_device_args`' tables.  The signed branch (patterns
+    without wildcards) ignores the shift tables: check ``c`` compares the
+    adjacent difference ``x[p+c+1] - x[p+c]`` of the widened values with
+    ``expected[c]`` exactly.  The unsigned branch (wildcards) compares
+    ``x[p+cur] - x[p+prev]`` with ``expected`` mod 2^(8*width).  Both clamp
+    a slice start as ``dynamic_slice`` does.  Windows past ``valid_count -
+    length`` are off."""
+    n = data.shape[0]
+    positions = n - length + 1
+    if positions <= 0:
+        return torch.zeros(0, dtype=torch.bool, device=data.device)
+    x = widen(data)
+    exp = expected.tolist()
+    ok = torch.ones(positions, dtype=torch.bool, device=data.device)
+    if signed_compare:
+        d1 = x[1:] - x[:-1]
+        for c, e in enumerate(exp):
+            s = min(c, n - 1 - positions)
+            ok &= d1[s : s + positions] == e
+    else:
+        mask = (1 << (8 * data.element_size())) - 1
+        top = n - positions
+        for cur, prev, e in zip(shift_cur.tolist(), shift_prev.tolist(), exp):
+            cur, prev = min(max(cur, 0), top), min(max(prev, 0), top)
+            diff = x[cur : cur + positions] - x[prev : prev + positions]
+            ok &= (diff & mask) == (e & mask)
+    idx = torch.arange(positions, dtype=torch.int64, device=data.device)
+    return ok & (idx <= valid_count - length)
+
+
+def compact_matches(
+    bitmap: torch.Tensor, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(count, offsets[capacity])`` int32 (``scan_jnp.compact_matches``):
+    ``count`` is the true number of set flags, which may exceed
+    ``capacity``; ``offsets`` the first ``capacity`` set positions in
+    ascending order, -1 at every slot at or past ``count``."""
+    count = bitmap.sum(dtype=torch.int32)
+    idx = nonzero_capped(bitmap, capacity)
+    pos = torch.arange(capacity, dtype=torch.int32, device=bitmap.device)
+    return count, torch.where(pos < count, idx, -1)
+
+
+def scan_chunk(
+    data: torch.Tensor,
+    valid_count: int,
+    shift_cur: torch.Tensor,
+    shift_prev: torch.Tensor,
+    expected: torch.Tensor,
+    recovery: torch.Tensor,
+    *,
+    length: int,
+    signed_compare: bool,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One dense scan of an element array (``scan_jnp.scan_chunk``):
+    ``(count, offsets[capacity], values[capacity, 2])``, the match count and
+    offsets of :func:`compact_matches` over :func:`match_bitmap`, and for
+    every slot the elements at ``clip(max(offset, 0) + recovery, 0, N -
+    1)`` in the data's dtype (filler slots hold those of offset 0)."""
+    bitmap = match_bitmap(data, valid_count, length, shift_cur, shift_prev,
+                          expected, signed_compare)
+    count, offsets = compact_matches(bitmap, capacity)
+    safe = torch.clamp(offsets, min=0).to(torch.int64)
+    idx = torch.clamp(safe[:, None] + recovery.to(torch.int64)[None, :], 0,
+                      data.shape[0] - 1)
+    if data.dtype == torch.uint16:
+        return count, offsets, data.view(torch.int16)[idx].view(torch.uint16)
+    return count, offsets, data[idx]
 
 
 def exact_phase2(

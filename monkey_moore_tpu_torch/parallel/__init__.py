@@ -7,7 +7,9 @@
   shard, every grid derived on its shard with its halo tile in place;
 - ``sharded``   — the fused steps on every shard (kernels A and B, or C
   and B for keyword batches), each shard's work enqueued before any
-  result is fetched;
+  result is fetched, and the exact match-and-compact scan
+  (:func:`sharded_candidates`, :func:`sharded_scan_fn`: kernel K per
+  shard with an ``L - 1`` halo);
 - ``multihost`` — processes in a gloo group, each scanning its byte range,
   with the candidate lists all-gathered.
 
@@ -23,11 +25,14 @@ from .multihost import (
     process_count,
     process_index,
 )
+from .sharded import sharded_candidates, sharded_scan_fn
 
 __all__ = [
     "DATA_AXIS",
     "Mesh",
     "make_mesh",
+    "sharded_candidates",
+    "sharded_scan_fn",
     "gather_results",
     "host_byte_range",
     "initialize_distributed",

@@ -1,5 +1,5 @@
-"""Sharded fused steps over a mesh — counterpart of the JAX package's
-``parallel/sharded.py`` (its two-phase and fused parts).
+"""Sharded scans over a mesh — counterpart of the JAX package's
+``parallel/sharded.py``.
 
 The reference's block/thread-pool runtime (``src/core/search_engine.cpp:
 82-175``) becomes a grid cut into one run of whole count tiles per shard.
@@ -21,6 +21,13 @@ B).  On CPU tensors they run the kernels' plain versions, as everywhere in
 the port.  :func:`parse_sharded_combos` copies the per-shard result
 buffers back and decodes them; on capacity overflow it returns the global
 counts for the host extraction, as the JAX module does.
+
+:func:`sharded_scan_fn` is the mesh form of the exact match-and-compact
+scan (kernel K, ``ops/scan_cuda.scan_chunk``): each shard holds its
+elements plus a halo of ``L - 1`` copied from the next shard, and returns
+its count and its first ``capacity`` offsets, made global.
+:func:`sharded_candidates` is its host-facing front: it retries at four
+times the capacity when a shard overflows.
 """
 
 from __future__ import annotations
@@ -50,11 +57,15 @@ from ..ops.scan_cuda import (
     tile_counts_gather,
     tile_counts_gather_elems,
     tile_counts_multi_gather,
+    scan_chunk,
 )
+from ..ops.scan_torch import pattern_device_args
 from ..pattern import CompiledPattern
 from .mesh import Mesh
 
 __all__ = [
+    "sharded_scan_fn",
+    "sharded_candidates",
     "shard_grid",
     "sharded_tile_counts",
     "sharded_step_operands",
@@ -66,6 +77,122 @@ __all__ = [
     "parse_sharded_combos",
     "sharded_fused_multi_step",
 ]
+
+
+def _place_halo(data, mesh: Mesh, halo: int) -> List[torch.Tensor]:
+    """A host element array, ``len(mesh)`` shards long, → one element buffer
+    per shard on its device: the shard, then a copy of the first ``halo``
+    elements of the next shard (the last shard's wraps to shard 0), cut to
+    the shard's length as the JAX step's ``d_local[:halo]`` is."""
+    arr = np.ascontiguousarray(data)
+    if not arr.flags.writeable:
+        arr = arr.copy()  # torch aliases only writable memory
+    wide = arr.dtype.itemsize == 2
+    host = torch.from_numpy(arr.view(np.int16) if wide else arr)
+    d = len(mesh)
+    shard = len(arr) // d
+    h = min(halo, shard)
+    exts = []
+    for i, dev in enumerate(mesh.devices):
+        ext = torch.empty(shard + h, dtype=host.dtype, device=dev)
+        ext[:shard].copy_(host[i * shard : (i + 1) * shard])
+        exts.append(ext)
+    for i in range(d):
+        exts[i][shard:].copy_(exts[(i + 1) % d][:h])
+    return [e.view(torch.uint16) if wide else e for e in exts]
+
+
+def sharded_scan_fn(mesh: Mesh, length: int, signed_compare: bool,
+                    capacity: int):
+    """The mesh scan step for a pattern shape: ``fn(data, valid, shift_cur,
+    shift_prev, expected, recovery)`` with ``data`` a host u8/u16 element
+    array whose length the mesh size divides, ``valid`` its valid element
+    count (int) and the tables of :func:`..ops.scan_torch.
+    pattern_device_args` (moved to each shard's device).  Every shard's
+    scan (kernel K on a card, its plain version on the CPU) is enqueued
+    before any result is fetched.  Returns the per-shard results stacked on
+    the first shard's device: counts int32[D], offsets int32[D, capacity]
+    (global element offsets, -1 fill) and values [D, capacity, 2]."""
+    require_own(mesh, Mesh, "sharded_scan_fn: mesh")
+    halo = length - 1
+
+    def fn(data, valid, shift_cur, shift_prev, expected, recovery):
+        exts = _place_halo(data, mesh, halo)
+        shard = len(data) // len(mesh)
+        counts, offsets, values = [], [], []
+        for i, ext in enumerate(exts):
+            base = i * shard
+            valid_local = min(max(int(valid) - base, 0), shard + halo)
+            tables = [t.to(ext.device) for t in
+                      (shift_cur, shift_prev, expected, recovery)]
+            count, offs, vals = scan_chunk(
+                ext, valid_local, *tables, length=length,
+                signed_compare=signed_compare, capacity=capacity,
+            )
+            counts.append(count)
+            offsets.append(torch.where(offs >= 0, offs + base, -1))
+            values.append(vals)
+        first = mesh.devices[0]
+        return tuple(
+            torch.stack([t.to(first) for t in parts])
+            for parts in (counts, offsets, values)
+        )
+
+    return fn
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as a numpy array (u16 through an int16 view)."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def sharded_candidates(
+    pat: CompiledPattern,
+    data: np.ndarray,
+    mesh: Mesh,
+    capacity_per_shard: int = 16384,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """All matching offsets of *data* scanned across *mesh*, with their
+    recovery values ``[M, 2]``, both int64.
+
+    Pads *data* to a whole number of shards, runs the
+    :func:`sharded_scan_fn` step and keeps every shard's offsets in order;
+    when a shard finds more matches than ``capacity_per_shard``, runs again
+    at four times the capacity."""
+    require_own(pat, CompiledPattern, "sharded_candidates")
+    require_own(mesh, Mesh, "sharded_candidates: mesh")
+    data = np.ascontiguousarray(data, dtype=pat.dtype)
+    n = len(data)
+    if n >= 2**31:
+        raise ValueError(
+            "sharded_candidates is int32-indexed (< 2^31 elements); use "
+            "the engine's chunked paths for larger inputs"
+        )
+    if n < pat.length:
+        return np.zeros(0, dtype=np.int64), np.zeros((0, 2), dtype=np.int64)
+    d = len(mesh)
+    shard = -(-n // d)
+    padded = shard * d
+    if padded != n:
+        data = np.pad(data, (0, padded - n))
+
+    fn = sharded_scan_fn(mesh, pat.length, pat.signed_compare,
+                         capacity_per_shard)
+    counts, offsets, values = fn(
+        data, n, *pattern_device_args(pat, mesh.devices[0])
+    )
+    if int(counts.max()) > capacity_per_shard:
+        return sharded_candidates(
+            pat, data[:n], mesh, capacity_per_shard * 4
+        )
+    offs = _to_host(offsets).reshape(-1)
+    vals = _to_host(values).reshape(-1, 2)
+    keep = offs >= 0
+    offs, vals = offs[keep].astype(np.int64), vals[keep].astype(np.int64)
+    order = np.argsort(offs, kind="stable")
+    return offs[order], vals[order]
 
 
 def _fused_mode(use_pallas: bool, tile_elems: int, max_shift: int) -> str:

@@ -367,6 +367,14 @@ out = os.path.join(os.path.dirname(sys.argv[1]), "harness.json")
 assert bench_baseline_configs.main(["--cpu", "--scale", "1024", "--iters",
                                     "1", "--json", out]) == 0
 """),
+    # alone: 4.9 s; limit 100 s
+    "graft_entry": (100, """
+from monkey_moore_tpu_torch import graft_entry
+from monkey_moore_tpu_torch.parallel import sharded_candidates
+fn, args = graft_entry.entry(device="cpu")
+assert int(fn(*args)[0]) == 0
+graft_entry.dryrun_multichip(2, device="cpu")
+"""),
     # alone: 3.9 s; limit 90 s
     "import_all": (90, """
 import importlib, pkgutil
@@ -393,9 +401,11 @@ def test_port_never_imports_jax(case, tmp_path):
     engine (on one device and on a mesh), a keyword batch (on one device and
     on a mesh) and ``dense_search``; the mesh-size bench; a CPU bench; a CPU
     perf_probe run (``ab`` among its stages); a small ``bench_all``; a small
-    ``bench_baseline_configs`` (its multi-host workers included); or an
-    import of every module of the package but ``__main__`` (which would run
-    the CLI).  None loads jax or any module of the JAX package."""
+    ``bench_baseline_configs`` (its multi-host workers included); the
+    graft entry points (``graft_entry.entry`` and ``dryrun_multichip`` on
+    two CPU shards); or an import of every module of the package but
+    ``__main__`` (which would run the CLI).  None loads jax or any module
+    of the JAX package."""
     limit, script = _NO_JAX[case]
     path = write_file(tmp_path, FILE_DATA_8)
     proc = subprocess.run(
