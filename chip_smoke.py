@@ -4,9 +4,10 @@
 ``python3 chip_smoke.py`` from the repository root:
 
 1. prints the environment (torch, the card, its power limit);
-2. builds the CUDA kernels from ``monkey_moore_tpu_torch/csrc/`` and runs
-   the backend probe, which launches kernels A, D, E and B once each at
-   tiny shapes against their plain versions;
+2. builds the CUDA kernels from ``monkey_moore_tpu_torch/csrc/``, prints
+   ``nvcc -Xptxas -v``'s registers, shared memory and spills of kernel K's
+   kernels, and runs the backend probe, which launches kernels A, D, E
+   and B once each at tiny shapes against their plain versions;
 3. holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at a tiny tile, exactly (all values are
    integers), and times both (the word counts kernel A at the main path's
@@ -108,13 +109,16 @@
    route (``host_latency_threshold_bytes=0``), first and best repeat;
 13. drives the exact match-and-compact scan: (a) kernel K
    (``scan_cuda.scan_chunk``) against its plain version on a 512 MiB chunk
-   of seeded random words (phase 3's size) as u8 and as u16 elements, for
-   "abcde" (the signed branch) and "ab*de" (the unsigned one) at capacity
-   4096, and for "abcde" with more plants than the capacity (the true
-   count, the first 4096 offsets in order, every value and filler slot
-   equal), each timed back to back beside its bound and the plain
-   version's time; (b) ``graft_entry.entry()`` on the card, its three
-   outputs equal to ``scan_torch.scan_chunk`` on the CPU; (c)
+   (phase 3's size) in ``compact_bench.CASES``' seven regimes: seeded
+   random words as u8 and as u16 elements for "abcde" (the signed branch)
+   and "ab*de" (the unsigned one) at capacity 4096, "abcde" with more
+   plants than the capacity, and a u8 and a u16 ramp for "abcde", where
+   every window passes the test mod 2^w and the exact test drops those
+   across the wrap (the true count, the first 4096 offsets in order,
+   every value and filler slot equal), each timed back to back beside its
+   bound and the plain version's time; (b) ``graft_entry.entry()`` on the
+   card, its three outputs equal to ``scan_torch.scan_chunk`` on the CPU;
+   (c)
    ``parallel.sharded_candidates`` on ``["cuda:0"] * 4`` over phase 4's
    file as u8 elements for phase 4's 8-bit keywords (every plant found,
    equal to ``dense.dense_candidates`` on the card), over its even 16-bit
@@ -186,6 +190,47 @@ def nvcc_release(nvcc) -> str:
                          timeout=60, check=True)
     lines = [s for s in out.stdout.splitlines() if "release" in s]
     return (lines or out.stdout.strip().splitlines() or ["?"])[-1].strip()
+
+
+#: kernel K's source and its kernels, whose ``nvcc -Xptxas -v`` report
+#: phase 2 prints
+K_SOURCE = "match_compact.cu"
+K_KERNELS = ("count_kernel", "scan_kernel", "emit_kernel")
+
+
+def start_ptxas_report(nvcc, flags, source: Path, out_dir: Path):
+    """``nvcc -Xptxas -v`` on one source into *out_dir*, started beside the
+    library's build; returns the process."""
+    return subprocess.Popen(
+        [nvcc, *flags, "-Xptxas", "-v", "-c", "-o",
+         str(out_dir / "ptxas.o"), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def ptxas_lines(report: str, names) -> list:
+    """One line per kernel of *names* in ptxas's ``-v`` report: its
+    registers, shared memory and spills (``<1>`` / ``<2>``: the u8 and u16
+    instances of a kernel templated on the element width)."""
+    import re
+
+    entry, used, spills = None, {}, {}
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        elif entry and "spill stores" in line:
+            spills[entry] = line.strip()
+        elif entry and "Used" in line:
+            used[entry] = line.split(":", 1)[-1].strip()
+    out = []
+    for entry in used:
+        name = next((k for k in names if k in entry), None)
+        if name is None:
+            continue
+        width = re.search(r"ILi(\d)E", entry)
+        label = f"{name}<{width.group(1)}>" if width else name
+        out.append(f"{label}: {used[entry]}; {spills.get(entry, '?')}")
+    return out
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -1801,50 +1846,53 @@ def harness_phase(torch, bench_record) -> dict:
 
 
 def compact_kernel_checks(torch):
-    """Phase 13 (a): kernel K against its plain version on a 512 MiB chunk
-    of seeded random words, the size of phase 3's, as u8 and as u16
-    elements, for "abcde" (the signed branch) and "ab*de" (the unsigned
-    one) at capacity 4096, and for "abcde" with more plants than the
-    capacity: the true count, every offset in order, every value, the
-    filler slots included.  Each regime is timed (K back to back, the
-    plain version by CUDA-event medians) beside its bound.  Returns the
-    kernel's row of the kernels line without launch counts."""
-    import numpy as np
-
-    from monkey_moore_tpu_torch.bench import back_to_back_ms, bound
+    """Phase 13 (a): kernel K against its plain version on a 512 MiB chunk,
+    the size of phase 3's, in ``compact_bench.CASES``' regimes: seeded
+    random words as u8 and as u16 elements for "abcde" (the signed branch)
+    and "ab*de" (the unsigned one) at capacity 4096, "abcde" with more
+    plants than the capacity, and a ramp for "abcde" at u8 and u16, where
+    every window passes the test mod 2^w and the exact test fails those
+    that cross the wrap.  The true count (on the ramps also its closed
+    form, ``compact_bench.ramp_count``), every offset in order and every
+    value, the filler slots included, equal the plain version's.  Each
+    regime is timed (K back to back, the plain version by CUDA-event
+    medians) beside its bound.  Returns the kernel's row of the kernels
+    line without launch counts."""
+    from monkey_moore_tpu_torch.bench import back_to_back_ms
+    from monkey_moore_tpu_torch.compact_bench import (
+        CAPACITY,
+        CASES,
+        case_data,
+        k_bound,
+        ramp_count,
+    )
     from monkey_moore_tpu_torch.ops import scan_cuda
     from monkey_moore_tpu_torch.ops.scan_torch import pattern_device_args
-    from monkey_moore_tpu_torch.pattern import compile_pattern
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 13)
-    capacity = 4096
     err, regimes = 0, []
-    cases = [(1, "abcde", 0, 64), (1, "ab*de", "*", 64), (2, "abcde", 0, 64),
-             (2, "ab*de", "*", 64), (1, "abcde", 0, capacity + 904)]
-    for width, kw, wc, n_plants in cases:
-        pat = compile_pattern(kw, wc,
-                              dtype=np.uint8 if width == 1 else np.uint16)
-        words = random_words(torch, gen, CHUNK)
-        n = CHUNK // width
-        valid = n - 1234
-        step = (valid - pat.length) // n_plants
-        plants = [1 + i * step + (i % 3) for i in range(n_plants)]
-        plant_words(torch, words, pat, plants, 5)
-        data = words.view(torch.uint8 if width == 1 else torch.uint16)
+    for case in CASES:
+        width, kw, _, n_plants, data_kind = case
+        data, valid, pat, plants = case_data(case, gen, "cuda", CHUNK)
+        what = f"phase 13 K {kw!r} u{8 * width} {data_kind}"
         args = (data, valid, *pattern_device_args(pat, "cuda"))
         kwargs = dict(length=pat.length, signed_compare=pat.signed_compare,
-                      capacity=capacity)
+                      capacity=CAPACITY)
         got = scan_cuda.scan_chunk(*args, **kwargs)
         want = scan_cuda.scan_chunk_plain(*args, **kwargs)
         count = int(want[0])
-        check(count >= n_plants, f"phase 13 K {kw!r} u{8 * width}: "
-              f"{count} matches, {n_plants} planted")
-        check(int(got[0]) == count, f"phase 13 K {kw!r} u{8 * width}: count "
-              f"{int(got[0])}, plain {count}")
-        offs = want[1][: min(count, capacity)].tolist()
+        check(count >= n_plants, f"{what}: {count} matches, {n_plants} "
+              "planted")
+        if data_kind == "ramp":
+            closed = ramp_count(valid - pat.length + 1, width, pat.length)
+            check(count == closed, f"{what}: plain count {count}, closed "
+                  f"form {closed}")
+        check(int(got[0]) == count, f"{what}: count {int(got[0])}, plain "
+              f"{count}")
+        offs = want[1][: min(count, CAPACITY)].tolist()
         check(set(p for p in plants if p <= offs[-1]) <= set(offs),
-              f"phase 13 K {kw!r} u{8 * width}: plants missing")
+              f"{what}: plants missing")
         for g, w in zip(got[1:], want[1:]):
             if g.dtype == torch.uint16:
                 g, w = g.view(torch.int16), w.view(torch.int16)
@@ -1853,20 +1901,18 @@ def compact_kernel_checks(torch):
             lambda: scan_cuda.scan_chunk(*args, **kwargs), 50)
         plain_ms = time_ms(
             torch, lambda: scan_cuda.scan_chunk_plain(*args, **kwargs), 3)
-        # the array read once, the outputs written once; every window start
-        # needs the first check's difference and compare
-        bound_ms, bound_by = bound(
-            n * width + 4 + capacity * (4 + 2 * width),
-            2 * (valid - pat.length + 1))
-        regimes.append({"width": width, "keyword": kw, "planted": n_plants,
-                        "count": count, "capacity": capacity, "ms": k_ms,
-                        "host_ms": k_host, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"phase 13 K {kw!r} u{8 * width} over {CHUNK // MIB} MiB: "
-              f"count {count} ({n_plants} planted), capacity {capacity}: K "
-              f"{k_ms:.4f} ms (host {k_host:.4f}) vs {plain_ms:.4f} ms "
-              f"plain, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        del words, data, args, got, want
+        bound_ms, bound_by = k_bound(data.numel(), width, valid, pat.length,
+                                     CAPACITY)
+        regimes.append({"width": width, "keyword": kw, "data": data_kind,
+                        "planted": n_plants, "count": count,
+                        "capacity": CAPACITY, "ms": k_ms, "host_ms": k_host,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by})
+        print(f"{what} over {CHUNK // MIB} MiB: count {count} ({n_plants} "
+              f"planted), capacity {CAPACITY}: K {k_ms:.4f} ms (host "
+              f"{k_host:.4f}) vs {plain_ms:.4f} ms plain, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        del data, args, got, want
         torch.cuda.empty_cache()
     check(err == 0, f"kernel K differs from its plain version by {err}")
     head = regimes[0]
@@ -1994,10 +2040,19 @@ def main() -> int:
     from monkey_moore_tpu_torch.ops.probe import probe
 
     t0 = time.perf_counter()
-    lib = _build.build_library()
-    _build.load_library()
+    with tempfile.TemporaryDirectory(prefix="mm_ptxas_") as tmp:
+        ptxas = start_ptxas_report(_build.find_nvcc(), _build.NVCC_FLAGS,
+                                   _build._CSRC / K_SOURCE, Path(tmp))
+        lib = _build.build_library()
+        _build.load_library()
+        _, report = ptxas.communicate(timeout=900)
     print(f"phase 2 build: {lib.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    check(ptxas.returncode == 0, f"nvcc -Xptxas -v {K_SOURCE}: {report}")
+    k_lines = ptxas_lines(report, K_KERNELS)
+    check(k_lines, f"no kernel of {K_SOURCE} in ptxas's report: {report}")
+    for line in k_lines:
+        print(f"phase 2 ptxas {K_SOURCE} {line}", flush=True)
     report = probe()
     check(report.library is not None and len(report.kernels) == 4
           and all(k.launched and k.matched for k in report.kernels),

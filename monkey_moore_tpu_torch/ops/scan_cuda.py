@@ -91,7 +91,10 @@ __all__ = [
     "load_sum",
     "load_sum_plain",
     "MATCH_SPAN",
+    "MATCH_LIST",
+    "match_spans",
     "scan_chunk",
+    "launch_match_compact",
     "scan_chunk_plain",
 ]
 
@@ -679,10 +682,22 @@ def load_sum_plain(words, tile_words) -> Tuple[torch.Tensor, torch.Tensor]:
     return sums, _wrap_int32(sums.sum(dtype=torch.int64))
 
 
-#: window starts per block of kernel K (``kSpan`` in
+#: window starts per span of kernel K (``kSpan`` in
 #: ``csrc/match_compact.cu``, which refuses a scratch size computed with
-#: another)
-MATCH_SPAN = 8192
+#: another): the unit of its per-span counts, of the one-block scan of their
+#: first ranks, and of its ordered emit
+MATCH_SPAN = 65536
+
+#: hits kernel K keeps per span in its scratch (``kList``): the emit writes
+#: a span of no more hits from its list, and tests a denser one again
+MATCH_LIST = 64
+
+
+def match_spans(n: int, valid_count: int, length: int) -> int:
+    """Spans of kernel K over ``n`` elements: ``ceil(W / MATCH_SPAN)`` for
+    the ``W`` window starts at or below ``min(valid_count, n) - length``."""
+    windows = max(0, min(valid_count, n) - length + 1)
+    return -(-windows // MATCH_SPAN)
 
 
 def scan_chunk(
@@ -727,11 +742,27 @@ def scan_chunk(
         )
     from ._build import load_library
 
-    lib = load_library()
-    last = min(valid_count, n) - length
-    n_spans = -(-max(0, last + 1) // MATCH_SPAN)
+    out = launch_match_compact(
+        load_library(), data, valid_count, shift_cur, shift_prev, expected,
+        recovery, length=length, signed_compare=signed_compare,
+        capacity=capacity,
+    )
+    launch_counts["scan_chunk"] += 1
+    return out
+
+
+def launch_match_compact(
+    lib, data, valid_count, shift_cur, shift_prev, expected, recovery, *,
+    length, signed_compare, capacity,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of *lib*'s kernel K (``mm_match_compact``) on operands
+    that :func:`scan_chunk` has checked; returns ``(count, offsets,
+    values)``.  Raises on a CUDA error."""
+    n = data.numel()
+    n_spans = match_spans(n, valid_count, length)
     dev = data.device
-    scratch = torch.empty(max(1, 2 * n_spans), dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(1, n_spans * (2 + MATCH_LIST)),
+                          dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     offsets = torch.empty(capacity, dtype=torch.int32, device=dev)
     values = torch.empty((capacity, 2), dtype=data.dtype, device=dev)
@@ -746,7 +777,6 @@ def scan_chunk(
             offsets.data_ptr(), values.data_ptr(), stream,
         )
     _raise_on(rc, "scan_chunk")
-    launch_counts["scan_chunk"] += 1
     return count, offsets, values
 
 

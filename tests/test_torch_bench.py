@@ -518,7 +518,7 @@ def test_compile_library_needs_nvcc(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("module", ["bench", "perf_probe", "gather_bench",
-                                    "counts_bench"])
+                                    "counts_bench", "compact_bench"])
 def test_entry_points_need_a_card(module):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the run would start")

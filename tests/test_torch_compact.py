@@ -5,10 +5,13 @@ tensors) against ``monkey_moore_tpu.ops.scan_jnp``; the mesh scan
 ``parallel.{sharded_scan_fn, sharded_candidates}`` on ``["cpu"] * n``
 against the JAX mesh on ``jax.devices()[:n]`` (conftest gives JAX 8
 virtual CPU devices) and the port's single-device ``dense_candidates``;
-and ``graft_entry`` against the root ``__graft_entry__.py``.  The inputs
-are made with numpy from fixed seeds and handed to both packages.  One
-test holds kernel K against its plain version on the card and skips
-without one.
+and ``graft_entry`` against the root ``__graft_entry__.py``; the
+wrapper's span geometry and the kernel's first test (every check mod 2^w)
+against ``match_bitmap``'s exact per-span counts; ``compact_bench``'s
+regimes (``chip_smoke.py`` phase 13's) against ``scan_jnp.scan_chunk`` at
+a small size.  The inputs are made with numpy from fixed seeds and handed
+to both packages.  The card tests (marked ``cuda``) hold kernel K against
+its plain version on the card and skip without one.
 
 Tolerance: exact equality throughout — every output is an integer,
 including the true count past capacity and the filler slots.
@@ -27,7 +30,7 @@ from monkey_moore_tpu.ops import scan_jnp
 from monkey_moore_tpu.parallel import make_mesh as jax_make_mesh
 from monkey_moore_tpu.parallel import sharded as jax_sharded
 from monkey_moore_tpu.pattern import compile_pattern as jax_compile
-from monkey_moore_tpu_torch import graft_entry
+from monkey_moore_tpu_torch import bench, compact_bench, graft_entry
 from monkey_moore_tpu_torch.dense import dense_candidates
 from monkey_moore_tpu_torch.ops import scan_cuda, scan_torch
 from monkey_moore_tpu_torch.parallel import (
@@ -393,8 +396,167 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
         graft_entry.dryrun_multichip(2)
 
 
+def _ramp(width, n):
+    """``x[i] = i mod 2^(8 * width)``: every window of "abcde" passes the
+    test mod 2^w, and the exact test fails the four in 2^w that cross the
+    wrap (a difference of 1 - 2^w, which is 1 mod 2^w)."""
+    dtype = np.uint8 if width == 1 else np.uint16
+    return (np.arange(n, dtype=np.int64) % (1 << (8 * width))).astype(dtype)
+
+
+def _kernel_pairs(pat, n_checks):
+    """The (cur, prev) element pairs kernel K tests, as its contract reads
+    the tables: the signed branch's adjacent differences from ``min(c, L -
+    2)``, the unsigned branch's shifts clamped to ``[0, L - 1]``."""
+    top = pat.length - 1
+    if pat.signed_compare:
+        return [(min(c, top - 1) + 1, min(c, top - 1))
+                for c in range(n_checks)]
+    return [(min(max(c, 0), top), min(max(p, 0), top))
+            for c, p in zip(pat.chk_shift_cur, pat.chk_shift_prev)]
+
+
+@pytest.mark.parametrize("data", ["planted", "ramp"])
+@pytest.mark.parametrize("name", list(PATTERNS))
+@pytest.mark.parametrize("width", [1, 2])
+def test_kernel_k_span_counts_bound_the_exact_counts(width, name, data):
+    """The wrapper's host-side geometry against ``match_bitmap`` (itself
+    equal to ``scan_jnp.match_bitmap`` here): ``match_spans`` spans of
+    ``MATCH_SPAN`` window starts cover exactly the windows that may match,
+    and the per-span counts of the kernel's first test, every check mod
+    2^w on its (cur, prev) pairs through the plain counts
+    (``scan_torch.count_body``), never undercount the exact per-span
+    counts and equal them on the unsigned branch.  On the signed branch's
+    ramp they overcount: the windows across the wrap."""
+    jpat, pat = _patterns(name, width)
+    span = scan_cuda.MATCH_SPAN
+    n = 2 * span + 777
+    valid = n - 300
+    if data == "ramp":
+        arr = _ramp(width, n)
+    else:
+        arr = _planted(7 + width, pat, n, list(range(11, n - 400, 4099)))
+    sc, sp, exp, _ = _torch_args(pat)
+    bitmap = scan_torch.match_bitmap(_tensor(arr), valid, pat.length, sc, sp,
+                                     exp, pat.signed_compare)
+    jsc, jsp, jexp, _ = _jax_args(jpat)
+    np.testing.assert_array_equal(
+        bitmap.numpy(),
+        np.asarray(scan_jnp.match_bitmap(
+            jnp.asarray(arr), jnp.int32(valid), jpat.length, jsc, jsp, jexp,
+            jpat.signed_compare)))
+    windows = min(valid, n) - pat.length + 1
+    n_spans = scan_cuda.match_spans(n, valid, pat.length)
+    assert n_spans == -(-windows // span) == 3
+    assert not bitmap[windows:].any()
+
+    flags = torch.zeros(n_spans * span, dtype=torch.int32)
+    flags[: bitmap.shape[0]] = bitmap.to(torch.int32)
+    exact = flags.view(n_spans, span).sum(1)
+    x = torch.zeros((n_spans + 1) * span, dtype=torch.int32)
+    x[:n] = scan_torch.widen(_tensor(arr))
+    mask = (1 << (8 * width)) - 1
+    first = scan_torch.count_body(
+        x, valid, [e & mask for e in exp.tolist()],
+        _kernel_pairs(pat, exp.shape[0]), pat.length, span, width)
+    assert (first >= exact).all()
+    if data == "planted" or name in ("abcde", "ab*de"):
+        assert int(exact.sum()) > 0  # a ramp holds no descending keyword
+    if not pat.signed_compare:
+        assert torch.equal(first, exact)
+    if pat.signed_compare and data == "ramp" and name == "abcde":
+        assert int(first.sum()) > int(exact.sum())
+
+
+@pytest.mark.parametrize("case", compact_bench.CASES,
+                         ids=lambda c: f"{c[1]}-u{8 * c[0]}-{c[4]}-{c[3]}")
+def test_compact_bench_cases_equal_jax(case):
+    """Phase 13's regimes (``compact_bench.CASES``) on a 64 KiB chunk: the
+    kernel-K wrapper on CPU tensors equals ``scan_jnp.scan_chunk``, finds
+    every plant up to the capacity, and counts a ramp's windows as
+    ``ramp_count``'s closed form does."""
+    gen = torch.Generator()
+    gen.manual_seed(compact_bench.SEED)
+    data, valid, pat, plants = compact_bench.case_data(
+        case, gen, "cpu", chunk_bytes=64 << 10)
+    width = case[0]
+    assert data.dtype == (torch.uint8 if width == 1 else torch.uint16)
+    assert data.numel() * width == 64 << 10 and valid == data.numel() - 1234
+    capacity = compact_bench.CAPACITY
+    got = scan_cuda.scan_chunk(data, valid, *_torch_args(pat),
+                               length=pat.length,
+                               signed_compare=pat.signed_compare,
+                               capacity=capacity)
+    jpat = jax_compile(case[1], case[2],
+                       dtype=np.uint8 if width == 1 else np.uint16)
+    want = scan_jnp.scan_chunk(
+        jnp.asarray(_numpy(data)), jnp.int32(valid), *_jax_args(jpat),
+        length=jpat.length, signed_compare=jpat.signed_compare,
+        capacity=capacity)
+    assert int(got[0]) == int(want[0])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(_numpy(got[2]), np.asarray(want[2]))
+    count = int(got[0])
+    assert count >= len(plants)
+    offs = set(got[1][: min(count, capacity)].tolist())
+    assert {p for p in plants if p <= max(offs)} <= offs
+    if case[4] == "ramp":
+        assert count == compact_bench.ramp_count(valid - pat.length + 1,
+                                                 width, pat.length)
+    assert compact_bench.k_bound(data.numel(), width, valid, pat.length,
+                                 capacity) == bench.bound(
+        (64 << 10) + 4 + capacity * (4 + 2 * width),
+        2 * (valid - pat.length + 1))
+
+
+def test_compact_bench_builds_through_ops_build(tmp_path, monkeypatch):
+    """``compact_bench`` builds this checkout's ``match_compact.cu`` and the
+    other checkout's, each by ``ops._build.compile_library`` into its own
+    file, and refuses a directory without one."""
+    built = {}
+
+    def compile_library(sources, lib_path):
+        built[lib_path.name] = [Path(s) for s in sources]
+        return lib_path
+
+    monkeypatch.setattr(compact_bench, "compile_library", compile_library)
+    monkeypatch.setattr(compact_bench, "open_library", lambda path: path)
+    monkeypatch.setattr(compact_bench, "BUILD", tmp_path / "build")
+    other = tmp_path / "csrc"
+    other.mkdir()
+    (other / "match_compact.cu").write_text("// another checkout's K\n")
+    libs = compact_bench.build_all(str(other))
+    assert built == {"this.so": [compact_bench.SOURCE],
+                     "against.so": [other / "match_compact.cu"]}
+    assert libs == {"this": tmp_path / "build" / "this.so",
+                    "against": tmp_path / "build" / "against.so"}
+    assert compact_bench.build_all(None) == {
+        "this": tmp_path / "build" / "this.so"}
+    with pytest.raises(RuntimeError, match="no match_compact"):
+        compact_bench.build_all(str(tmp_path / "build"))
+
+
 # ---------------------------------------------------------------------------
 # on the card
+
+
+def _k_equals_plain(data, tables, length, signed_compare, valids):
+    """Kernel K against its plain version on the card: count, offsets and
+    values equal at capacities 0, 16 and 1000, on ``data`` with each valid
+    count of ``valids`` and on the views ``data[1:]`` (a start inside a
+    word) and ``data[:4]``."""
+    views = [(data, v) for v in valids]
+    views += [(data[1:], data.numel() - 1 - 5000), (data[:4], 4)]
+    for view, valid in views:
+        for capacity in (0, 16, 1000):
+            args = (view, valid, *tables)
+            kwargs = dict(length=length, signed_compare=signed_compare,
+                          capacity=capacity)
+            got = scan_cuda.scan_chunk(*args, **kwargs)
+            want = scan_cuda.scan_chunk_plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(_numpy(g), _numpy(w))
 
 
 @pytest.mark.cuda
@@ -421,3 +583,68 @@ def test_kernel_k_equals_plain_on_the_card():
                     torch.cuda.synchronize()
                     for g, w in zip(got, want):
                         np.testing.assert_array_equal(_numpy(g), _numpy(w))
+
+
+def _long_keyword(width, length, signed_compare, seed):
+    """A keyword of ``length`` seeded random elements and kernel K's check
+    tables for it on the card, made by hand (``compile_pattern`` takes
+    keywords of at most 128 elements): the signed branch's ``length - 1``
+    adjacent differences, exact, or three unsigned checks mod 2^w, one
+    across the whole keyword."""
+    rng = np.random.default_rng(seed)
+    mod = 1 << (8 * width)
+    kv = rng.integers(0, mod, length)
+    if signed_compare:
+        cur = np.arange(1, length)
+        prev = cur - 1
+        exp = kv[cur] - kv[prev]
+    else:
+        cur = np.array([1, length - 1, length // 2])
+        prev = np.array([0, 0, 7])
+        exp = (kv[cur] - kv[prev]) % mod
+    tables = tuple(torch.tensor(np.asarray(a), dtype=torch.int32,
+                                device="cuda")
+                   for a in (cur, prev, exp, [0, length - 1]))
+    return kv, tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize(
+    "case", ["ramp", "long", "long-wildcard", "sparse", "never"])
+def test_kernel_k_exact_cases_on_the_card(case, width):
+    """Kernel K equals its plain version on arrays of several spans and a
+    ragged end: a ramp, where the signed branch's test mod 2^w admits the
+    windows across the wrap and the exact test must drop them; keywords
+    whose largest shift passes the staged overhang of 256 bytes (700
+    elements, signed, more checks than K holds in shared memory; 300
+    elements, unsigned, more hits a span than its list holds); plants
+    sparse enough that every
+    span's hits fit its list; and a signed table with an expected value no
+    difference reaches (no match)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 3 * scan_cuda.MATCH_SPAN + 1001
+    dtype = np.uint8 if width == 1 else np.uint16
+    pat = compile_pattern("abcde", dtype=dtype)
+    length, signed_compare = pat.length, pat.signed_compare
+    if case == "ramp":
+        arr = _ramp(width, n)
+        tables = scan_torch.pattern_device_args(pat, "cuda")
+    elif case.startswith("long"):
+        signed_compare = case == "long"
+        length = 700 if signed_compare else 300
+        kv, tables = _long_keyword(width, length, signed_compare, width)
+        arr = np.random.default_rng(width).integers(0, 1 << (8 * width), n)
+        for pos in range(5, n - length, 5003 if signed_compare else 653):
+            arr[pos : pos + length] = kv
+        arr = arr.astype(dtype)
+    else:
+        arr = _planted(width, pat, n, list(range(5, n - 10, 5003)))
+        tables = scan_torch.pattern_device_args(pat, "cuda")
+    if case == "never":
+        exp = tables[2].clone()
+        exp[-1] = 1 << (8 * width)
+        tables = (tables[0], tables[1], exp, tables[3])
+    _k_equals_plain(_tensor(arr).cuda(), tables, length, signed_compare,
+                    (n, n - 300))
