@@ -25,6 +25,7 @@ import torch
 
 from .carry import require_own
 from .config import Endianness
+from .profiling import count, span
 
 __all__ = [
     "ResidentCorpus",
@@ -43,16 +44,19 @@ def derive_words(raw: torch.Tensor, byte_shift: int, element_width: int,
     stream plus one word to borrow from): the stream shifted down by
     ``byte_shift`` bytes, then each 16-bit element byte-swapped when
     ``big``.  A view of ``raw[:-1]`` where there is nothing to derive."""
-    if byte_shift:
-        k = 8 * byte_shift
-        low = (raw[:-1] >> k) & ((1 << (32 - k)) - 1)
-        w = low | (raw[1:] << (32 - k))
-    else:
-        w = raw[:-1]  # a view: nothing to derive
-    if element_width == 2 and big:
-        # byte swap within each 16-bit element
-        high = (w << 8) & (0xFF00FF00 - (1 << 32))  # as signed int32
-        w = ((w >> 8) & 0x00FF00FF) | high
+    swap = element_width == 2 and big
+    if not (byte_shift or swap):
+        return raw[:-1]  # a view: nothing to derive
+    with span("mm.corpus.derive"):
+        w = raw[:-1]
+        if byte_shift:
+            k = 8 * byte_shift
+            low = (w >> k) & ((1 << (32 - k)) - 1)
+            w = low | (raw[1:] << (32 - k))
+        if swap:
+            # byte swap within each 16-bit element
+            high = (w << 8) & (0xFF00FF00 - (1 << 32))  # as signed int32
+            w = ((w >> 8) & 0x00FF00FF) | high
     return w
 
 
@@ -64,8 +68,10 @@ class ResidentCorpus:
         # pad to whole words + one spare word (the byte shift borrows from
         # the next word)
         total = -(-(self.n_bytes + pad_bytes + 4) // 4) * 4
-        padded = np.zeros(total, dtype=np.uint8)
-        padded[: self.n_bytes] = data_bytes
+        with span("mm.corpus.pad"):
+            padded = np.zeros(total, dtype=np.uint8)
+            padded[: self.n_bytes] = data_bytes
+        count("corpus.pad_bytes", total)
         self._set_words(padded.view("<i4"), device)
 
     @classmethod
@@ -81,7 +87,10 @@ class ResidentCorpus:
 
     def _set_words(self, words: np.ndarray, device) -> None:
         # a synchronous copy: the corpus is on the device on return
-        self.device_words = torch.from_numpy(words.view(np.int32)).to(device)
+        with span("mm.corpus.h2d"):
+            self.device_words = torch.from_numpy(
+                words.view(np.int32)).to(device)
+        count("corpus.h2d_bytes", words.nbytes)
         #: True until the first engine run accounts the upload in its stats
         self.fresh = True
 
@@ -145,9 +154,10 @@ def get_resident_corpus(
             return hit
         _cache.clear()
         try:
-            corpus = ResidentCorpus(
-                np.fromfile(p, dtype=np.uint8), pad_bytes, device
-            )
+            with span("mm.corpus.read"):
+                data = np.fromfile(p, dtype=np.uint8)
+            count("corpus.read_bytes", data.nbytes)
+            corpus = ResidentCorpus(data, pad_bytes, device)
         except (OSError, torch.cuda.OutOfMemoryError):
             return None
         _cache[key] = corpus

@@ -68,6 +68,7 @@ from .ops.scan_np import match_positions_np
 from .ops.suppress import greedy_suppress
 from .oracle import oracle_search
 from .pattern import CompiledPattern
+from .profiling import span
 
 __all__ = [
     "TILE_ELEMS",
@@ -274,8 +275,10 @@ def fused_count_extract_finish(
     counts and the batched hot-tile fetch."""
     if pending.eager is not None:
         return pending.eager
+    with span("mm.step.fetch"):
+        combo = pending.combo_dev.cpu().numpy()
     return _decode_step(
-        pending.pat, pending.combo_dev.cpu().numpy(), pending.counts_dev,
+        pending.pat, combo, pending.counts_dev,
         pending.arr_device, pending.valid_count, pending.tile_elems,
         pending.grid_offset, pending.k_cap, pending.p_cap,
     )
@@ -289,10 +292,12 @@ def _decode_step(pat, combo, counts_dev, arr_device, valid_count,
     if info.hot_tiles == 0:
         return *_EMPTY, info
     if info.fallback:
-        counts_np = counts_dev.cpu().numpy()
-        offs, vals = extract_hot_tiles_device(
-            pat, arr_device, counts_np, valid_count, tile_elems, grid_offset,
-        )
+        with span("mm.step.fallback"):
+            counts_np = counts_dev.cpu().numpy()
+            offs, vals = extract_hot_tiles_device(
+                pat, arr_device, counts_np, valid_count, tile_elems,
+                grid_offset,
+            )
         info = info._replace(
             candidates=len(offs),
             d2h_bytes=info.d2h_bytes + counts_np.nbytes

@@ -12,6 +12,7 @@ card, and ``chip_smoke.py`` fails without one.
 Tolerance: exact equality throughout — every value is an integer.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -255,6 +256,27 @@ def test_device_trace_writes_a_trace(tmp_path, monkeypatch):
     res = SearchEngine(cfg, device="cpu").run()
     assert [r.offset for r in res] == [0, 9, 27, 50, 60]
     assert len(list(trace_dir.glob("trace_*.json"))) == 1
+
+
+def test_device_trace_inside_a_running_profiler_starts_none(tmp_path,
+                                                           monkeypatch):
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("MMTPU_TRACE_DIR", str(trace_dir))
+    cfg = tconfig.SearchConfig(file_path=write_file(tmp_path, FILE_DATA_8),
+                               keyword="text", host_latency_threshold_bytes=0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        res = SearchEngine(cfg, device="cpu").run()
+    assert [r.offset for r in res] == [0, 9, 27, 50, 60]
+    assert not trace_dir.exists()  # the running profiler's owner writes
+    assert {"mm.search", "mm.engine.finalize"} <= {
+        e.name for e in prof.events()}
+    # alone, the run's own trace holds the whole run, its tail included
+    SearchEngine(cfg, device="cpu").run()
+    (path,) = trace_dir.glob("trace_*.json")
+    names = {e.get("name") for e in json.loads(path.read_text())[
+        "traceEvents"]}
+    assert {"mm.search", "mm.engine.finalize", "mm.engine.results"} <= names
 
 
 def test_probe_reports_without_cuda():
