@@ -20,7 +20,13 @@
    beside ``index_select`` of the tile view, at k_cap 32 and 128 with the
    main path's ids and with distinct ids, and at the bench path's 8 KiB
    tiles and k_cap 32, by back-to-back launches with each call's host
-   enqueue time);
+   enqueue time; the step's tail, kernel L, at k_cap 32 and p_cap 1024 on
+   the same chunk at u8 and u16 for a plain, a wildcard and a
+   leading-wildcard keyword, with no hot tile, one, 8, 32 and more than 32,
+   more matches than p_cap, the last tile (partial, its halo in the
+   padding tile) hot, every entry of the combo equal to its plain
+   version's, and timed back to back at 1, 8 and 32 hot tiles beside the
+   plain tail);
 4. writes a 1 GiB file of seeded random bytes with planted keywords and
    searches it through ``monkey_moore_tpu_torch.engine.SearchEngine`` with
    default settings (the resident device route): an 8-bit keyword, an
@@ -42,8 +48,8 @@
    after suppression and recovery, through kernel D and never kernel A;
 7. repeats phase 4's searches through the engine's streaming branch (the
    residency limit below the file size): each chunk is uploaded as
-   elements and scanned by kernels D and E, never A or B, and the results
-   must equal phase 4's;
+   elements and scanned by kernels D and L, never A, B or E, and the
+   results must equal phase 4's;
 8. runs the benchmark path of ``monkey_moore_tpu_torch.bench`` in-process
    at its full size (``MMTPU_BENCH_MB``, 12 GiB by default): the corpus is
    generated on the card, the keyword is planted at two byte offsets that
@@ -57,7 +63,7 @@
 9. drives the user's entry points over phase 4's file on the card: the
    CLI in-process (``search`` of phase 4's 8-bit and 16-bit BE keywords,
    first and repeat, equal to phase 4's resident results through kernels
-   A and B and never D or E; ``multi-search`` of phase 5's 8-bit batch,
+   A and L and never B, D or E; ``multi-search`` of phase 5's 8-bit batch,
    equal to phase 5 through kernel C and never A; ``value-scan`` of the
    8-bit plants' bytes, every plant found; ``export-tbl``, the file equal
    to ``tables.build_table_data`` of phase 4's first result), one
@@ -72,21 +78,21 @@
    multi_trials=37, device="cuda", streaming=True)`` (the engine's
    streaming branch where the JAX gate takes a mesh): at each seed no
    failed check and the JAX gate's passed and known-divergence counts
-   there (547 and 3, 559 and 5), with kernels A, B, D and E launched at
+   there (547 and 3, 559 and 5), with kernels A, D and L launched at
    its odd geometries (64-byte blocks, 4 KiB chunks, odd 16-bit tails);
 11. drives the meshes and the multi-host search over phase 4's file:
    (a) phase 4's three searches through ``SearchEngine`` with
    ``devices=["cuda:0"] * 4`` (and with every card, where there are more
    than one), first and repeat, each equal to phase 4's results with every
-   plant found, through kernels A and B only (never C, D or E), with the
+   plant found, through kernels A and L only (never B, C, D or E), with the
    mesh stats printed; then the 8-bit search with ``resident_bytes_limit=0``
    (the chunked mesh step), equal again; (b) phase 5's 8-bit batch through
    ``MultiSearcher(..., devices=["cuda:0"] * 4)``, equal to phase 5,
    through kernel C and never A; (c) two worker processes on the card in a
    gloo group on a free localhost port, each running ``run_distributed``
    for phase 4's 8-bit keyword on ``cuda:0`` (the streaming branch,
-   kernels D and E) and on a mesh of two shards (the chunked mesh step,
-   kernels A and B), every result equal to phase 4's; (d) the gate's mesh
+   kernels D and L) and on a mesh of two shards (the chunked mesh step,
+   kernels A and L), every result equal to phase 4's; (d) the gate's mesh
    pass, ``run_gate(150, 424242, 37, "cuda")`` with ``[device] * n`` on
    ``t % 3 == 2``: the JAX gate's summary, 547/550 with 3 known
    divergences; (e) ``bench_scaling`` over the file at mesh sizes 1, 2
@@ -96,14 +102,14 @@
    with the keyword planted at unaligned byte offsets past 2^31 and 2^32
    and as u16 elements past 2^31 and 2^32 bytes: every plant found by its
    suites, every reported offset holding the keyword (checked on the host
-   from the bytes there), every suite through kernels A and B and never C,
-   D or E, and the 8-bit suite's rate printed beside phase 8's; then
+   from the bytes there), every suite through kernels A and L and never B,
+   C, D or E, and the 8-bit suite's rate printed beside phase 8's; then
    its 128 KiB-16 MiB ladder, every size on the host route; (b)
    ``bench_baseline_configs`` at full size (``--scale 1 --iters 2``): every
    configuration's plants found, the 1 GB row on the resident device
    route, its four-shard mesh and two gloo worker processes equal to it;
-   (c) ``perf_probe --stage ab --mb 4096``: the three gathers give equal
-   combo buffers; (d) ``tui_smoke`` on the card (its 50 KB ROM rides the
+   (c) ``perf_probe --stage ab --mb 4096``: kernel L and the two plain
+   tails after other gathers give equal combo buffers; (d) ``tui_smoke`` on the card (its 50 KB ROM rides the
    host route and launches no kernel); (e) the host/device crossover: one
    8-bit search at 4, 16 and 64 MiB on the host route and on the device
    route (``host_latency_threshold_bytes=0``), first and best repeat;
@@ -294,7 +300,7 @@ def kernel_phase(torch):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    err = {"A": 0, "B": 0, "D": 0, "E": 0, "I": 0}
+    err = {"A": 0, "B": 0, "D": 0, "E": 0, "I": 0, "L": 0}
     ms = {"D regimes": []}
     work = {}  # kernel -> (bound_ms, bound_by) at the timed shape
     for width in (1, 2):
@@ -352,6 +358,8 @@ def kernel_phase(torch):
                 if te == TE and kw == "abcde":
                     gather_checks(torch, scan_cuda, nonzero_capped, words,
                                   elems, got, width, te, err, ms, work)
+                    tail_checks(torch, scan_cuda, words, width, valid, err,
+                                ms, work)
                 del words, elems, got, want, got_d, want_d
                 torch.cuda.empty_cache()
     for name in err:
@@ -399,6 +407,8 @@ def kernel_phase(torch):
         row("gather_tiles_block", "gather_tiles.cu", tpu + "315", "E",
             err["E"], ms["E"], ms["E plain"], ms["B library"],
             regimes=ms["gather regimes"]),
+        row("hot_combo", "hot_combo.cu", tpu + "1163", "L", err["L"],
+            ms["L"], ms["L plain"], None, regimes=ms["L regimes"]),
     ], err["I"]
 
 
@@ -584,6 +594,145 @@ def gather_checks(torch, scan_cuda, nonzero_capped, words, elems, counts,
               f"{row['library ms']:.4f} ms (host "
               f"{row['library host ms']:.4f}), bound {row['bound_ms']:.4f} "
               f"ms; back to back, {LAUNCHES} launches", flush=True)
+
+
+def tail_at_bench_tiles(torch, scan_cuda, pat, words, n, te, k_cap):
+    """Phase 8, kernel L at the bench step's shape (``te``-element tiles
+    over the whole corpus, so its select reads every one of the counts): L
+    equal to ``hot_combo_plain`` on the step's own counts, then timed back
+    to back beside the plain tail (CUDA events)."""
+    from monkey_moore_tpu_torch.bench import back_to_back_ms, tile_view
+    from monkey_moore_tpu_torch.dense import fused_count_extract_start
+    from monkey_moore_tpu_torch.ops.scan_torch import (
+        as_elements,
+        pattern_device_args,
+    )
+
+    data = tile_view(words, n, te)
+    k_cap = fused_count_extract_start(pat, data, n, tile_elems=te,
+                                      k_cap=k_cap).k_cap
+    counts, _ = scan_cuda.tile_counts_gather(pat, data, n, te, k_cap, 1024)
+    elems = as_elements(data, 1)
+    tables = pattern_device_args(pat, data.device)
+    args = dict(tile_elems=te, length=pat.length,
+                signed_compare=pat.signed_compare, k_cap=k_cap, p_cap=1024)
+    got = scan_cuda.hot_combo(elems, counts, n, *tables, **args)
+    want = scan_cuda.hot_combo_plain(elems, counts, n, *tables, **args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          "phase 8: kernel L differs from its plain version")
+    l_ms, host_ms = back_to_back_ms(
+        lambda: scan_cuda.hot_combo(elems, counts, n, *tables, **args))
+    plain_ms = time_ms(torch, lambda: scan_cuda.hot_combo_plain(
+        elems, counts, n, *tables, **args), 3)
+    print(f"phase 8 kernel L at the bench's {counts.numel()} tiles of {te} "
+          f"elements, k_cap {k_cap}, {int(want[0])} hot: L {l_ms:.4f} ms "
+          f"(host {host_ms:.4f}) vs {plain_ms:.4f} ms plain tail; == plain",
+          flush=True)
+
+
+def tail_checks(torch, scan_cuda, words, width, valid, err, ms, work):
+    """Phase 3, kernel L on the 512 MiB chunk buffer (u8 or u16 elements)
+    at the main path's tiles, k_cap 32 and p_cap 1024: a plain, a wildcard
+    and a leading-wildcard keyword (a recovery shift past a filler slot's
+    limit), each planted at the start, across a tile edge, mid-chunk and at
+    its last valid window (the last tile partial, its halo the padding
+    tile), under counts with no hot tile, 1, 8, 32 and 40 (over k_cap)
+    among the planted tiles and a ramp tile (more matches than p_cap):
+    every entry of the combo equal to ``hot_combo_plain``'s
+    on the same device tensors.  On the u8 buffer, L timed back to back at
+    1, 8 and 32 hot tiles of planted tiles only (no ramp: the steps that
+    keep their combo) with its host enqueue time and its bound (bytes read
+    once: the counts, each live slot's ``te + L - 1`` elements, the combo),
+    beside the plain tail's time (CUDA events)."""
+    import numpy as np
+
+    from monkey_moore_tpu_torch.bench import back_to_back_ms, bound
+    from monkey_moore_tpu_torch.ops.host import COMBO_HEADER
+    from monkey_moore_tpu_torch.ops.scan_torch import pattern_device_args
+    from monkey_moore_tpu_torch.pattern import compile_pattern
+
+    te, k_cap, p_cap = TE, 32, 1024
+    dtype = np.uint8 if width == 1 else np.uint16
+    elems = words.view(torch.uint8 if width == 1 else torch.uint16)
+    n_tiles = elems.numel() // te - 1
+    planted = [0, 1, 2, n_tiles // 2, (valid - 1) // te]
+    rng = np.random.default_rng(SEED + width)
+    others = [t for t in rng.choice(n_tiles, 64, replace=False).tolist()
+              if t not in planted]
+    hot_sets = {0: [], 1: [n_tiles // 2], 8: planted + others[:3],
+                32: planted + others[:27], 40: planted + others[:35]}
+    sparse = [t for t in planted if t != 2]  # no ramp tile: timed sets
+    timed_sets = {1: [n_tiles // 2], 8: sparse + others[:8 - len(sparse)],
+                  32: sparse + others[:32 - len(sparse)]}
+
+    def counts_of(ids):
+        counts = torch.zeros(n_tiles, dtype=torch.int32, device="cuda")
+        if ids:
+            counts[torch.tensor(ids, device="cuda")] = torch.tensor(
+                rng.integers(1, 6, len(ids)).astype(np.int32), device="cuda")
+        return counts
+
+    # tile 2 a ramp: every window of "abcde" and "ab*de" matches
+    ramp = (np.arange(te) % (1 << (8 * width))).astype(dtype)
+    signed = torch.int16 if width == 2 else torch.uint8
+    elems.view(signed)[2 * te : 3 * te] = torch.from_numpy(
+        ramp.view(np.int16) if width == 2 else ramp).to("cuda")
+    regimes = []
+    for shift, (kw, wc) in enumerate((("abcde", 0), ("ab*de", "*"),
+                                      ("?bcdE", "?"))):
+        pat = compile_pattern(kw, wc, dtype=dtype)
+        plant_words(torch, words, pat, [1, 2 * te - 2, (n_tiles // 2) * te + 7,
+                                        valid - pat.length], 5 + shift)
+        tables = pattern_device_args(pat, "cuda")
+        args = dict(tile_elems=te, length=pat.length,
+                    signed_compare=pat.signed_compare, k_cap=k_cap,
+                    p_cap=p_cap)
+        for n_hot, ids in hot_sets.items():
+            counts = counts_of(ids)
+            got = scan_cuda.hot_combo(elems, counts, valid, *tables, **args)
+            want = scan_cuda.hot_combo_plain(elems, counts, valid, *tables,
+                                             **args)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape, "kernel L shape")
+            err["L"] = max(err["L"], int((got - want).abs().max()))
+            check(int(want[0]) == n_hot, f"kernel L: n_hot {int(want[0])}")
+            check((int(want[2]) > p_cap) == (2 in ids),
+                  f"kernel L {kw!r}, {n_hot} hot: n_cand {int(want[2])}")
+            if width != 1 or kw != "abcde" or n_hot not in timed_sets:
+                continue
+            counts = counts_of(timed_sets[n_hot])
+            want = scan_cuda.hot_combo_plain(elems, counts, valid, *tables,
+                                             **args)
+            err["L"] = max(err["L"], int((scan_cuda.hot_combo(
+                elems, counts, valid, *tables, **args) - want).abs().max()))
+            check(int(want[0]) == n_hot and int(want[2]) <= p_cap,
+                  f"kernel L: a timed set reads {want[:3].tolist()}")
+            fn = (lambda: scan_cuda.hot_combo(elems, counts, valid, *tables,
+                                              **args))
+            kms, host_ms = back_to_back_ms(fn)
+            plain_ms = time_ms(torch, lambda: scan_cuda.hot_combo_plain(
+                elems, counts, valid, *tables, **args), 5)
+            n_bytes = (4 * n_tiles + min(n_hot, k_cap) * (te + pat.length - 1)
+                       * width + 4 * (COMBO_HEADER + 2 * k_cap + 3 * p_cap))
+            bound_ms, bound_by = bound(n_bytes, 0)
+            regimes.append({"n_hot": n_hot, "n_cand": int(want[2]),
+                            "ms": kms, "host_ms": host_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by})
+    if width != 1:
+        return
+    ms["L regimes"] = regimes
+    ms["L"], ms["L plain"] = regimes[0]["ms"], regimes[0]["plain_ms"]
+    work["L"] = (regimes[0]["bound_ms"], regimes[0]["bound_by"])
+    for row in regimes:
+        print(f"phase 3 kernel L, u8 'abcde' over {CHUNK // MIB} MiB, k_cap "
+              f"{k_cap}, p_cap {p_cap}, {row['n_hot']} hot tiles "
+              f"({row['n_cand']} matches): L {row['ms']:.4f} ms (host "
+              f"{row['host_ms']:.4f}) vs {row['plain_ms']:.4f} ms plain tail,"
+              f" bound {row['bound_ms']:.4f} ms ({row['bound_by']}; the "
+              f"launches dominate); == plain at u8/u16, 3 keywords, 0/1/8/32/"
+              f"40 hot tiles", flush=True)
 
 
 def multi_kernel_phase(torch, gen):
@@ -790,8 +939,10 @@ def slice_phase(torch, workdir: Path):
         print(f"phase 4 search {name!r}: {len(results)} results "
               f"(= host route), first {times[0]:.3f} s, repeat "
               f"{times[1]:.3f} s | {stats.summary()}", flush=True)
-    check(launches["tile_counts"] > 0 and launches["gather_tiles"] > 0,
-          f"kernels not launched on the main path: {launches}")
+    check(launches["tile_counts"] > 0
+          and launches["hot_combo"] == launches["tile_counts"]
+          and launches["gather_tiles"] == 0,
+          f"not kernels A and L on the main path: {launches}")
     print(f"phase 4 launches on the main path: {launches}", flush=True)
     resident = {name: [(r.offset, r.values_map) for r in results]
                 for name, (results, _, _) in device_results.items()}
@@ -824,8 +975,9 @@ def batch_phase(torch, path: Path, batches):
         check(runs[0][0] == runs[1][0], f"{name}: repeat differs")
         batch_results[name] = (ms, runs[0][0], [t for _, t in runs])
     launches = path_launches(scan_cuda, "phase 5")
-    check(launches["tile_counts_multi"] > 0 and launches["gather_tiles"] > 0,
-          f"kernels not launched on the batch path: {launches}")
+    check(launches["tile_counts_multi"] > 0 and launches["hot_combo"] > 0
+          and launches["gather_tiles"] == 0,
+          f"not kernels C and L on the batch path: {launches}")
     check(launches["tile_counts"] == 0,
           f"the batch path launched the single-keyword kernel: {launches}")
     print(f"phase 5 launches on the batch path: {launches}", flush=True)
@@ -932,7 +1084,7 @@ def memory_phase(torch, path: Path, searches):
 def stream_phase(torch, path: Path, searches, resident):
     """Phase 7: phase 4's searches through the engine's streaming branch
     (``resident_bytes_limit`` below the file size): each chunk is decoded
-    on the host, uploaded as elements and scanned by kernels D and E.
+    on the host, uploaded as elements and scanned by kernels D and L.
     Results must equal phase 4's resident results."""
     from monkey_moore_tpu_torch.config import SearchConfig
     from monkey_moore_tpu_torch.engine import SearchEngine
@@ -952,10 +1104,11 @@ def stream_phase(torch, path: Path, searches, resident):
         runs[name] = (results, engine.last_stats, time.perf_counter() - t0)
     launches = path_launches(scan_cuda, "phase 7")
     check(launches["tile_counts_elems"] > 0
-          and launches["gather_tiles_block"] > 0,
-          f"kernels D and E not launched on the streaming path: {launches}")
-    check(launches["tile_counts"] == 0 and launches["gather_tiles"] == 0,
-          f"the streaming path launched kernel A or B: {launches}")
+          and launches["hot_combo"] == launches["tile_counts_elems"],
+          f"kernels D and L not launched on the streaming path: {launches}")
+    check(launches["tile_counts"] == launches["gather_tiles"]
+          == launches["gather_tiles_block"] == 0,
+          f"the streaming path launched kernel A, B or E: {launches}")
     print(f"phase 7 launches on the streaming path: {launches}", flush=True)
 
     for name, (results, stats, secs) in runs.items():
@@ -999,7 +1152,7 @@ def frontend_phase(torch, workdir: Path, path: Path, searches, resident,
     """Phase 9: the user's entry points on the card over phase 4's file.
     The CLI in-process: ``search`` of phase 4's 8-bit and 16-bit BE
     keywords, each twice (output equal to phase 4's resident results,
-    kernels A and B, never D or E), ``multi-search`` of phase 5's 8-bit
+    kernels A and L, never B, D or E), ``multi-search`` of phase 5's 8-bit
     batch (equal to phase 5, kernel C, never A), ``value-scan`` of the
     8-bit plant's byte values (every plant found) and ``export-tbl`` (the
     file equal to ``tables`` of phase 4's first result); one ``python -m
@@ -1059,10 +1212,10 @@ def frontend_phase(torch, workdir: Path, path: Path, searches, resident,
             walls[f"cli search {name} {attempt}"] = wall
         outputs[name] = out
     launches = read("cli search")
-    check(launches["tile_counts"] > 0 and launches["gather_tiles"] > 0
-          and launches["tile_counts_elems"] == 0
-          and launches["gather_tiles_block"] == 0,
-          f"cli search: not kernels A and B alone: {launches}")
+    check(launches["tile_counts"] > 0 and launches["hot_combo"] > 0
+          and launches["tile_counts_elems"] == launches["gather_tiles"]
+          == launches["gather_tiles_block"] == 0,
+          f"cli search: not kernels A and L alone: {launches}")
 
     words = [(spec if isinstance(spec, str) else spec["keyword"])
              .replace("*", "?") for spec, _ in batches["8-bit batch"][1]]
@@ -1186,8 +1339,8 @@ def gate_phase(torch):
     """Phase 10: the conformance gate's streaming pass on the card,
     ``conformance.run_gate(150, seed, 37, "cuda", streaming=True)`` at
     seeds 424242 and 2024: at each no failed check and the JAX gate's
-    passed and known-divergence counts, and over both kernels A, B, D and
-    E launched at its odd geometries (64-byte blocks, 4 KiB chunks, odd
+    passed and known-divergence counts, and over both kernels A, D and L
+    launched at its odd geometries (64-byte blocks, 4 KiB chunks, odd
     16-bit tails).  Returns their launch counts."""
     from monkey_moore_tpu_torch.conformance import run_gate, summary_line
     from monkey_moore_tpu_torch.ops import scan_cuda
@@ -1213,10 +1366,9 @@ def gate_phase(torch):
               f"{summary_line(result)}")
     launches = dict(scan_cuda.launch_counts)
     aligned = dict(scan_cuda.aligned_launch_counts)
-    check(all(launches[k] > 0 for k in ("tile_counts", "gather_tiles",
-                                        "tile_counts_elems",
-                                        "gather_tiles_block")),
-          f"gate: kernels A, B, D and E not all launched: {launches}")
+    check(all(launches[k] > 0 for k in ("tile_counts", "tile_counts_elems",
+                                        "hot_combo")),
+          f"gate: kernels A, D and L not all launched: {launches}")
     print(f"phase 10 launches on the gate path: {launches}; gathers on the "
           f"bulk route: {aligned}", flush=True)
     return launches
@@ -1302,8 +1454,8 @@ def mesh_phase(torch, path: Path, searches, resident, batches, batch_found):
         print(f"phase 11 launches of {step}: {launches}", flush=True)
         scan_cuda.reset_launch_counts()
 
-    a_b = ("tile_counts", "gather_tiles")
-    no_c_d_e = ("tile_counts_multi", "tile_counts_elems",
+    a_b = ("tile_counts", "hot_combo")
+    no_c_d_e = ("tile_counts_multi", "tile_counts_elems", "gather_tiles",
                 "gather_tiles_block")
     cards = torch.cuda.device_count()
     meshes = [["cuda:0"] * 4]
@@ -1374,8 +1526,9 @@ def mesh_phase(torch, path: Path, searches, resident, batches, batch_found):
     print(f"phase 11 mesh batch K={len(specs)} on 4 shards: "
           f"{[len(g) for g in groups]} results (= phase 5) in {wall:.3f} s",
           flush=True)
-    read("the mesh batch", ("tile_counts_multi", "gather_tiles"),
-         ("tile_counts", "tile_counts_elems", "gather_tiles_block"))
+    read("the mesh batch", ("tile_counts_multi", "hot_combo"),
+         ("tile_counts", "tile_counts_elems", "gather_tiles",
+          "gather_tiles_block"))
     clear_sharded_corpus_cache()
 
     # (c) two processes on the one card, in a gloo group
@@ -1411,8 +1564,9 @@ def mesh_phase(torch, path: Path, searches, resident, batches, batch_found):
                   f"phase 11 multi-host worker {pid} ({mode}): differs "
                   "from phase 4's results")
             launches = run["launches"]
-            want_k, never_k = ((("tile_counts_elems", "gather_tiles_block"),
-                                ("tile_counts", "gather_tiles"))
+            want_k, never_k = ((("tile_counts_elems", "hot_combo"),
+                                ("tile_counts", "gather_tiles",
+                                 "gather_tiles_block"))
                                if mode == "device" else (a_b, no_c_d_e))
             check(all(launches[k] > 0 for k in want_k)
                   and all(launches[k] == 0 for k in never_k),
@@ -1444,7 +1598,7 @@ def mesh_phase(torch, path: Path, searches, resident, batches, batch_found):
           f"phase 11 gate: not the JAX gate's {GATE_JAX_PASSED} passed and "
           f"{GATE_JAX_KNOWN} known divergences: {summary_line(result)}")
     # the gate's tiny chunks may take the gathers' edge copy
-    read("the gate's mesh pass", a_b, ("tile_counts_elems",
+    read("the gate's mesh pass", a_b, ("tile_counts_elems", "gather_tiles",
                                         "gather_tiles_block"), aligned=False)
 
     # (e) mesh sizes side by side over the file
@@ -1531,9 +1685,10 @@ def bench_phase(torch, err_i: int):
     record = bench.measure(words, n, device_name=name, **conf)
     launches = path_launches(scan_cuda, "phase 8")
     check(launches["load_sum"] >= 1 and launches["tile_counts"] >= 1
-          and launches["gather_tiles"] >= 1,
+          and launches["hot_combo"] >= 1,
           f"kernels not launched on the bench path: {launches}")
     print(json.dumps(record), flush=True)
+    tail_at_bench_tiles(torch, scan_cuda, pat, words, n, te, conf["k_cap"])
     shares = {"pct_hbm_roofline": record.get("pct_hbm_roofline", 0.0),
               "pure load % of 3.35 TB/s":
                   100.0 * record["pure_load_bytes_per_s"] / HBM_BYTES_PER_S}
@@ -1660,10 +1815,10 @@ def suites_phase(torch, bench_record):
     for name, keyword, wildcard, width in bench_all.SUITES:
         m = details[name]
         got = m["launches"]
-        check(got["tile_counts"] > 0 and got["gather_tiles"] > 0
+        check(got["tile_counts"] > 0 and got["hot_combo"] > 0
               and got["tile_counts_multi"] == got["tile_counts_elems"]
-              == got["gather_tiles_block"] == 0,
-              f"phase 12 suite {name}: not kernels A and B alone: {got}")
+              == got["gather_tiles"] == got["gather_tiles_block"] == 0,
+              f"phase 12 suite {name}: not kernels A and L alone: {got}")
         found = m["offsets"].tolist()
         planted = plants8 if width == 1 else plants16
         missing = sorted(set(planted) - set(found))
@@ -1712,8 +1867,8 @@ def baseline_phase(torch):
     check(rows[-1]["route"] == "device"
           and rows[-1]["first_run_includes_upload"],
           f"phase 12 baseline: the 1 GB row took {rows[-1]['route']}")
-    check(launches["tile_counts"] > 0 and launches["gather_tiles"] > 0,
-          f"phase 12 baseline: kernels A and B not launched: {launches}")
+    check(launches["tile_counts"] > 0 and launches["hot_combo"] > 0,
+          f"phase 12 baseline: kernels A and L not launched: {launches}")
     for r in rows:
         print(f"phase 12 baseline {r['config'][:40]!r}: {r['size_bytes']} "
               f"bytes [{r['route']}] {r['bytes_per_s'] / 1e9:.3f} GB/s "
@@ -1746,8 +1901,9 @@ def probe_ab_phase(torch):
           if x.startswith('{"probe": "ab_')]
     check(len(ab) == 3 and len({(r["hot"], r["fallback"]) for r in ab}) == 1,
           f"phase 12 perf_probe ab: records {ab}")
-    check(launches["gather_tiles"] > 0 and launches["gather_tiles_block"] > 0,
-          f"phase 12 perf_probe ab: B and E not both launched: {launches}")
+    check(launches["hot_combo"] > 0 and launches["gather_tiles_block"] > 0
+          and launches["gather_tiles"] == 0,
+          f"phase 12 perf_probe ab: L and E not both launched: {launches}")
     return launches
 
 

@@ -8,7 +8,7 @@ corpus resident in device memory: the corpus is generated on the card, in
 256 MiB pieces from a ``torch.Generator`` seeded with ``--seed``, as packed
 little-endian int32 words plus one halo tile of zeros, and each timed step
 runs the production fused step (``dense.fused_count_extract``: kernel A's
-counts, kernel B's gather of the hot tiles, the exact phase 2, one result
+counts, kernel L's exact phase 2 over the hot tiles, one result
 copy) over all of it.  Beside it, the speed-of-light decomposition: the
 pure-load kernel I (``ops.scan_cuda.load_sum``, which only reads and sums
 the corpus at the counts kernel's 2 MiB tile geometry) and the counts

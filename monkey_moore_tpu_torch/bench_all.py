@@ -5,8 +5,8 @@ matrix, which stays as it is).
 It mirrors the reference's suites (``benchmarks/bench_search.cpp:67-104``):
 8/16-bit relative search and wildcard Front/Middle/Back variants, bytes/s
 on a corpus resident in device memory.  Every suite runs the production
-fused step (``dense.fused_count_extract``: kernel A's counts, kernel B's
-gather of the hot tiles, the exact phase 2, one result copy) at 8
+fused step (``dense.fused_count_extract``: kernel A's counts, kernel L's
+exact phase 2 over the hot tiles, one result copy) at 8
 Ki-element tiles over ``--mb`` MiB (12 GiB by default, the headline's
 scale), timed two ways in one process: ``sync``, the best of ``--iters``
 steps, and ``pipelined``, ``--pipeline`` steps kept in flight with every

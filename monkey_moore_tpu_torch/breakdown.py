@@ -12,7 +12,7 @@ figure the median, with min and max, over ``--reps`` calls):
    (``extract_hot_tiles``); beside them a pageable and a pinned 1 GiB
    host-to-device copy;
 2. the fused step on one 512 MiB chunk of the same bytes, as packed words
-   (kernels A and B, the resident route) and as elements (kernels D and E,
+   (kernels A and L, the resident route) and as elements (kernels D and L,
    the streaming route), upload excluded;
 3. the two keywords through ``SearchEngine``'s streaming branch
    (``resident_bytes_limit`` below the file size): wall time, the

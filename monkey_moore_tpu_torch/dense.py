@@ -19,8 +19,8 @@ candidates match, the finish fetches the full counts and runs the batched
 host extraction instead (:func:`extract_hot_tiles_device`).
 
 **Route rule.** The operand picks the kernels, never a probe: packed int32
-words (the resident corpus) go through kernels A and B; any u8/u16 element
-tensor of a pattern with at least one check goes through kernels D and E
+words (the resident corpus) go through kernels A and L; any u8/u16 element
+tensor of a pattern with at least one check goes through kernels D and L
 (in-memory arrays, the engine's streaming chunks), whatever its check
 shifts — D stages a whole halo tile, so unlike the TPU kernel it takes
 every shift below the pattern length.  All-wildcard patterns (no check)
@@ -63,6 +63,7 @@ from .ops.scan_cuda import (
     tile_counts_multi_gather,
 )
 from .ops.scan_cuda import tile_counts as _kernel_tile_counts
+from .ops.scan_torch import operand_cache
 from .ops.recover import recover_from_values, recovery_shifts
 from .ops.scan_np import match_positions_np
 from .ops.suppress import greedy_suppress
@@ -148,7 +149,7 @@ def _check_elements(pat: CompiledPattern, arr: torch.Tensor) -> None:
 
 def wants_packed(pat: CompiledPattern) -> bool:
     """True when a resident grid should be derived as packed little-endian
-    int32 words (kernels A and B: every pattern with at least one check);
+    int32 words (kernels A and L: every pattern with at least one check);
     all-wildcard patterns take element arrays."""
     pairs, _, _ = _prefilter_sel(pat)
     return bool(pairs)
@@ -191,6 +192,21 @@ def tile_counts(
     return counts.cpu().numpy()
 
 
+def _step_plan(pat: CompiledPattern, valid_count: int,
+               tile_elems: int) -> Tuple[bool, int]:
+    """``(has a prefilter check, auto_k_cap)`` of a step, memoized per
+    pattern beside its device operands: a search's steps share them."""
+    cache = operand_cache(pat)
+    key = ("step", valid_count, tile_elems)
+    plan = cache.get(key)
+    if plan is None:
+        pairs, _, _ = _prefilter_sel(pat)
+        plan = cache[key] = (
+            bool(pairs), auto_k_cap(pat, valid_count, tile_elems, len(pairs))
+        )
+    return plan
+
+
 class FusedPending(NamedTuple):
     """An in-flight fused step: device tensors whose computation may still
     be running, plus what :func:`fused_count_extract_finish` needs to fetch
@@ -218,22 +234,22 @@ def fused_count_extract_start(
     k_cap: int | None = None,
     p_cap: int = 1024,
     *,
-    gather: str = "dma",
+    gather: str = "fused",
 ) -> FusedPending:
     """Enqueue phases 1 + 2 of one step WITHOUT fetching the result, so the
     caller can enqueue the next chunk first.  ``arr_device``: the chunk's
-    ``(T+1) * tile_elems`` elements, as packed words (kernels A and B) or
-    u8/u16 elements (kernels D and E).  ``gather``: the hot-tile gather of
-    packed words, one of ``scan_cuda.GATHER_MODES`` (kernel B by default;
+    ``(T+1) * tile_elems`` elements, as packed words (kernels A and L) or
+    u8/u16 elements (kernels D and L).  ``gather``: the tail's read of
+    packed words, one of ``scan_cuda.GATHER_MODES`` (kernel L by default;
     only ``perf_probe``'s ``ab`` stage sets it)."""
     _own(pat, "fused_count_extract_start")
-    pairs, _, _ = _prefilter_sel(pat)
-    if gather != "dma" and not (pairs and _packed(pat, arr_device)):
+    has_pairs, auto_cap = _step_plan(pat, valid_count, tile_elems)
+    if gather != "fused" and not (has_pairs and _packed(pat, arr_device)):
         raise ValueError("only a packed step with a check takes another "
-                         "gather than kernel B")
+                         "tail than kernel L")
     if k_cap is None:
-        k_cap = auto_k_cap(pat, valid_count, tile_elems, len(pairs))
-    if not pairs:
+        k_cap = auto_cap
+    if not has_pairs:
         # all-wildcard keywords match every window — every tile is hot, so
         # fusion buys nothing: count on the host, extract every tile
         counts = tile_counts(pat, arr_device, valid_count, tile_elems)
@@ -321,7 +337,7 @@ def fused_count_extract(
     k_cap: int | None = None,
     p_cap: int = 1024,
     *,
-    gather: str = "dma",
+    gather: str = "fused",
 ) -> Tuple[np.ndarray, np.ndarray, FusedInfo]:
     """Phases 1 + 2 for one device-resident chunk: ``(offsets, values,
     info)``, offsets ascending, values the two recovery values per match.

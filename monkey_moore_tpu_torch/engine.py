@@ -14,7 +14,7 @@ dense scan:
   and each (chunk, alignment) grid is derived on the device;
 - **streaming** — files over ``resident_bytes_limit`` are decoded on the
   host per chunk and uploaded as u8/u16 elements, which take the
-  element-array step (kernels D and E).
+  element-array step (kernels D and L).
 
 Both keep up to ``pipeline_depth`` fused steps in flight: step k+1 is
 enqueued before step k's result buffer is copied back.
@@ -22,7 +22,7 @@ enqueued before step k's result buffer is copied back.
 **Meshes** (``SearchConfig.devices``, a sequence of torch devices; see
 ``parallel/``): the file is resident across the mesh
 (``parallel.resident.get_sharded_corpus``) and each alignment grid is
-scanned in one mesh step, every shard's kernels A and B enqueued before
+scanned in one mesh step, every shard's kernels A and L enqueued before
 any result is fetched (``_scan_mesh_resident``); files over the residency
 limit, and multi-host runs, take the chunked mesh step inside the
 pipeline (each decoded chunk cut into shards on the mesh).
@@ -706,9 +706,9 @@ class SearchEngine:
     def _scan_mesh_resident(self, pat, data, file_size, blocks, progress,
                             aborted, timer, corpus):
         """Whole-corpus mesh scan against a sharded resident corpus: per
-        alignment grid, ONE mesh step (kernel A's counts, the hot-tile
-        gather with kernel B and the exact phase 2 on every shard, each
-        shard's halo tile already in place), with the corpus words resident
+        alignment grid, ONE mesh step (kernel A's counts, then kernel L's
+        exact phase 2 over the hot tiles on every shard, each shard's halo
+        tile already in place), with the corpus words resident
         on the shards (``parallel/resident.py``).  H2D per repeat search:
         zero.
         """

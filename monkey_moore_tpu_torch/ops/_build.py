@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 
 #: C entry points and their ctypes signatures (every pointer and the stream
 #: as c_void_p, every size as a 64-bit int); each returns cudaGetLastError()
+#: but those of :data:`_RESTYPES`
 _SIGNATURES = {
     "mm_tile_counts": [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
@@ -70,7 +71,21 @@ _SIGNATURES = {
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
     ],
+    "mm_hot_combo": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ],
+    "mm_hot_combo_scratch_words": [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int64,
+    ],
 }
+
+#: entry points that return a size, not an error
+_RESTYPES = {"mm_hot_combo_scratch_words": ctypes.c_int64}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -172,7 +187,7 @@ def open_library(path: Path) -> ctypes.CDLL:
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

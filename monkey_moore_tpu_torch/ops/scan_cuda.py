@@ -21,7 +21,10 @@ The wrappers of the kernels, hand-written in CUDA C++ for Hopper
   (``load_kernel`` / ``load_call``);
 - :func:`scan_chunk` (kernel K, ``csrc/match_compact.cu``) computes
   ``scan_jnp.scan_chunk``, the exact match-and-compact scan that XLA fuses
-  for the JAX package (no Pallas kernel there).
+  for the JAX package (no Pallas kernel there);
+- :func:`hot_combo` (kernel L, ``csrc/hot_combo.cu``) replaces the fused
+  step's tail, ``scan_pallas._hot_slots_and_combo``: hot-tile choice, the
+  exact phase 2 read straight from the chunk, and the combo buffer.
 
 Each wrapper checks its operands, allocates its output, and launches its
 kernel on the current stream for a CUDA tensor, or runs its plain PyTorch
@@ -32,15 +35,14 @@ gathers' launches whose pointers and tile size are all 16-byte aligned,
 where every slot inside the source moves by bulk copy.
 
 :func:`tile_counts_gather` is the counterpart of ``tile_counts_gather_pallas``
-with ``_swar_counts_gather_call`` and ``_hot_slots_and_combo``: counts,
-hot-tile selection, gather, unpack, exact phase 2 and the combo buffer,
+with ``_swar_counts_gather_call`` and ``_hot_slots_and_combo``: kernel A's
+counts, then kernel L's hot-tile selection, exact phase 2 and combo buffer,
 all enqueued with no host sync.  :func:`tile_counts_gather_elems` is its
-element-array twin (``_native_counts_gather_call``: kernels D and E), and
+element-array twin (``_native_counts_gather_call``: kernels D and L), and
 :func:`tile_counts_multi_gather` the keyword-batch twin
-(``_swar_multi_gather_call``).  Packed words gather with B and element
-arrays with E: the route follows the operand, not a probe.  Only
+(``_swar_multi_gather_call``: kernel C, then L per keyword).  Only
 ``perf_probe``'s ``ab`` stage asks :func:`tile_counts_gather` for another
-gather of the packed words (``gather=``, one of :data:`GATHER_MODES`), as
+tail of the packed words (``gather=``, one of :data:`GATHER_MODES`), as
 the JAX probe sets ``_PALLAS_PROBE["gather_mode"]``.
 """
 
@@ -52,16 +54,20 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..pattern import CompiledPattern
-from .host import canonical_check_tables, multi_pattern_tables, prefilter_checks
+from .host import (
+    COMBO_HEADER,
+    canonical_check_tables,
+    multi_pattern_tables,
+    prefilter_checks,
+)
 from . import scan_torch
 from .scan_torch import (
     as_elements,
     count_body,
-    exact_phase2,
     nonzero_capped,
     operand_cache,
-    pack_combo,
     pattern_device_args,
     widen,
 )
@@ -96,17 +102,21 @@ __all__ = [
     "scan_chunk",
     "launch_match_compact",
     "scan_chunk_plain",
+    "hot_combo",
+    "hot_combo_plain",
 ]
 
-#: the fused tail's gathers of packed words: kernel B (the default), kernel
-#: E's entry on the same bytes, and ``index_select`` of the overlapping tile
-#: view (the counterpart of the JAX step's XLA take)
-GATHER_MODES = ("dma", "block", "take")
+#: the fused tail's reads of packed words: kernel L's, straight from the
+#: chunk (the default, which took the place of kernel B's gather), and, for
+#: ``perf_probe``'s ``ab`` stage only, kernel E's entry on the same bytes
+#: and ``index_select`` of the overlapping tile view (the counterpart of the
+#: JAX step's XLA take), each followed by the plain tail
+GATHER_MODES = ("fused", "block", "take")
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0,
                  "tile_counts_elems": 0, "gather_tiles_block": 0,
-                 "load_sum": 0, "scan_chunk": 0}
+                 "load_sum": 0, "scan_chunk": 0, "hot_combo": 0}
 
 #: the gathers' launches with 16-byte aligned source, output and tile size
 aligned_launch_counts = {"gather_tiles": 0, "gather_tiles_block": 0}
@@ -394,28 +404,31 @@ def tile_counts_gather(
     k_cap: int,
     p_cap: int,
     *,
-    gather: str = "dma",
+    gather: str = "fused",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused phases 1 + 2 for one grid chunk, enqueued on the current
     stream with no host sync.
 
     ``words``: the chunk's packed words, ``(T+1) * tile_elems`` elements.
     Returns device tensors ``(counts int32[T], combo int32)``: kernel A's
-    counts, then ``nonzero_capped`` picks the first ``k_cap`` hot tiles,
-    kernel B gathers each with its halo tile (or the *gather* of
-    :data:`GATHER_MODES`), the exact phase 2 re-checks every window of the
-    slots with the full check tables, and the combo buffer packs header,
-    hot ids and counts, candidate offsets and recovery values (layout
-    ``host.COMBO_HEADER``)."""
+    counts, then kernel L picks the first ``k_cap`` hot tiles, re-checks
+    every window of each with the full check tables, reading the tile and
+    its halo straight from ``words``, and packs header, hot ids and counts,
+    candidate offsets and recovery values (layout ``host.COMBO_HEADER``).
+    *gather* other than ``"fused"`` (:data:`GATHER_MODES`) takes the plain
+    tail after that gather instead (``perf_probe``'s ``ab`` stage)."""
     counts = tile_counts(
         words, prefilter_operand(pat, words.device),
         width=np.dtype(pat.dtype).itemsize, tile_elems=tile_elems,
         length=pat.length, valid_count=valid_count,
     )
-    return counts, _hot_slots_and_combo(
-        pat, words, counts, valid_count, tile_elems, k_cap, p_cap,
-        gather=gather,
-    )
+    if gather == "fused":
+        tail = _fused_tail(pat, words, counts, valid_count, tile_elems,
+                           k_cap, p_cap)
+    else:
+        tail = _gathered_tail(pat, words, counts, valid_count, tile_elems,
+                              k_cap, p_cap, gather=gather)
+    return counts, tail
 
 
 def tile_counts_gather_elems(
@@ -427,14 +440,13 @@ def tile_counts_gather_elems(
     p_cap: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`tile_counts_gather` on an unpacked u8/u16 element buffer
-    (``_native_counts_gather_call``): kernel D's counts, then
-    ``nonzero_capped``, kernel E's gather, the exact phase 2 and the combo
-    buffer, in the same layout, enqueued with no host sync."""
+    (``_native_counts_gather_call``): kernel D's counts, then kernel L's
+    tail, in the same layout, enqueued with no host sync."""
     counts = tile_counts_elems(
         elems, prefilter_operand(pat, elems.device), tile_elems=tile_elems,
         length=pat.length, valid_count=valid_count,
     )
-    return counts, _hot_slots_and_combo(
+    return counts, _fused_tail(
         pat, elems, counts, valid_count, tile_elems, k_cap, p_cap
     )
 
@@ -450,10 +462,10 @@ def all_windows_gather(
     """:func:`tile_counts_gather` for a pattern with no prefilter check (an
     all-wildcard keyword; ``fused_body_xla`` with no pairs): every window
     start ``e <= valid_count - length`` counts, so the counts come from the
-    geometry, with no counts kernel; then the same tail (kernel B from
-    packed words, E from elements), enqueued with no host sync."""
+    geometry, with no counts kernel; then kernel L's tail over packed words
+    or elements, enqueued with no host sync."""
     counts = all_windows_counts(pat, data, valid_count, tile_elems)
-    return counts, _hot_slots_and_combo(
+    return counts, _fused_tail(
         pat, data, counts, valid_count, tile_elems, k_cap, p_cap
     )
 
@@ -472,43 +484,141 @@ def all_windows_counts(pat: CompiledPattern, data: torch.Tensor,
                        tile_elems).to(torch.int32)
 
 
-def _hot_slots_and_combo(pat, data, counts, valid_count, tile_elems, k_cap,
-                         p_cap, *, gather: str = "dma") -> torch.Tensor:
-    """The fused step's tail after the counts (``_hot_slots_and_combo``):
-    the first ``k_cap`` hot tiles gathered with their halo tiles (kernel B
-    from packed int32 words, or the *gather* of :data:`GATHER_MODES`;
-    kernel E from u8/u16 elements), the exact phase 2 over them, and the
-    pattern's combo buffer."""
-    _check(gather in GATHER_MODES, f"gather must be one of {GATHER_MODES}")
+def _fused_tail(pat, data, counts, valid_count, tile_elems, k_cap,
+                p_cap) -> torch.Tensor:
+    """The fused step's tail after the counts: :func:`hot_combo` over the
+    chunk ``data`` (packed int32 words or u8/u16 elements) with the
+    pattern's memoized exact tables."""
+    cur, prev, exp, rec = pattern_device_args(pat, data.device)
+    if data.dtype == torch.int32:
+        data = as_elements(data, np.dtype(pat.dtype).itemsize)
+    return hot_combo(
+        data, counts, valid_count, cur, prev, exp, rec,
+        tile_elems=tile_elems, length=pat.length,
+        signed_compare=pat.signed_compare, k_cap=k_cap, p_cap=p_cap,
+    )
+
+
+def _gathered_tail(pat, words, counts, valid_count, tile_elems, k_cap,
+                   p_cap, *, gather: str) -> torch.Tensor:
+    """The plain tail after another gather of packed words
+    (``_hot_slots_and_combo`` with ``gather_kernel`` "block" or falsy):
+    the first ``k_cap`` hot tiles gathered with their halo tiles by kernel
+    E's entry on the same bytes (``"block"``) or ``index_select`` of the
+    overlapping tile view (``"take"``), then ``scan_torch.slots_combo``.
+    Only ``perf_probe``'s ``ab`` stage, a diagnostic, runs it; every search
+    takes kernel L."""
+    _check(gather in GATHER_MODES[1:],
+           f"gather must be one of {GATHER_MODES}")
     width = np.dtype(pat.dtype).itemsize
-    L = pat.length
     hot = nonzero_capped(counts, k_cap)
-    nhot = (counts > 0).sum(dtype=torch.int32)
-    if data.dtype != torch.int32:
-        slots = gather_tiles_block(data, hot, tile_elems=tile_elems)
-    elif gather == "dma":
-        raw = gather_tiles(data, hot, width=width, tile_elems=tile_elems)
-        slots = as_elements(raw, width)
-    elif gather == "block":
-        slots = gather_tiles_block(as_elements(data, width), hot,
+    if gather == "block":
+        slots = gather_tiles_block(as_elements(words, width), hot,
                                    tile_elems=tile_elems)
     else:  # "take": tile t and its halo tile are row t of the view
         tile_bytes = tile_elems * width
-        view = data.view(torch.uint8).unfold(0, 2 * tile_bytes, tile_bytes)
+        view = words.view(torch.uint8).unfold(0, 2 * tile_bytes, tile_bytes)
         slots = as_elements(torch.index_select(view, 0, hot), width)
-    _, _, exp_exact, recovery = pattern_device_args(pat, data.device)
-    n_cand, flat_idx, v0, v1 = exact_phase2(
-        slots[:, : tile_elems + L - 1], hot, nhot,
-        valid_count // tile_elems, valid_count % tile_elems,
-        tile_elems=tile_elems, length=L,
-        pairs_exact=tuple(
-            (int(c), int(p))
-            for c, p in zip(pat.chk_shift_cur, pat.chk_shift_prev)
-        ),
-        expected=exp_exact, signed_compare=pat.signed_compare,
-        recovery=recovery, p_cap=p_cap,
+    _, _, exp_exact, recovery = pattern_device_args(pat, words.device)
+    return scan_torch.slots_combo(
+        slots[:, : tile_elems + pat.length - 1], counts, hot, valid_count,
+        tuple((int(c), int(p))
+              for c, p in zip(pat.chk_shift_cur, pat.chk_shift_prev)),
+        exp_exact, recovery, tile_elems=tile_elems, length=pat.length,
+        signed_compare=pat.signed_compare, p_cap=p_cap,
     )
-    return pack_combo(counts, hot, nhot, n_cand, flat_idx, v0, v1)
+
+
+def hot_combo(
+    elems: torch.Tensor,
+    counts: torch.Tensor,
+    valid_count: int,
+    shift_cur: torch.Tensor,
+    shift_prev: torch.Tensor,
+    expected: torch.Tensor,
+    recovery: torch.Tensor,
+    *,
+    tile_elems: int,
+    length: int,
+    signed_compare: bool,
+    k_cap: int,
+    p_cap: int,
+) -> torch.Tensor:
+    """Kernel L: the fused step's int32 combo buffer (layout
+    ``host.COMBO_HEADER``, ``3 + 2 k_cap + 3 p_cap`` entries) from the
+    chunk's u8/u16 ``elems`` (``(T+1) * tile_elems`` of them) and their
+    counts ``int32[T]``: ``n_hot`` (tiles with a count above 0), the
+    counts' int32 sum, the exact match count, the first ``k_cap`` hot ids
+    and their counts, the first ``p_cap`` matches of the exact phase 2 over
+    those tiles as ``slot * tile_elems + rel`` and their two recovery
+    values (``scan_torch.exact_phase2``; fillers as its plain version
+    writes them).  The tables are :func:`scan_torch.pattern_device_args`'
+    int32 tensors beside ``elems``; ``valid_count`` is a host int, so
+    nothing waits on the card.  Two launches on the current stream."""
+    n_tiles = _elems_geometry(elems, tile_elems)
+    dev = elems.device
+    _check(counts.dtype == torch.int32 and counts.shape == (n_tiles,)
+           and counts.is_contiguous() and counts.device == dev,
+           "counts must be a contiguous int32[T] tensor beside elems")
+    checks = (shift_cur, shift_prev, expected)
+    _check(all(t.dtype == torch.int32 and t.dim() == 1 and t.is_contiguous()
+               and t.device == dev and t.shape == shift_cur.shape
+               for t in checks),
+           "the check tables must be contiguous int32[C] tensors beside "
+           "elems")
+    _check(recovery.dtype == torch.int32 and recovery.shape == (2,)
+           and recovery.is_contiguous() and recovery.device == dev,
+           "recovery must be a contiguous int32[2] tensor beside elems")
+    _check(1 <= length <= tile_elems + 1,
+           "a slot holds its tile and at most one tile more: length - 1 "
+           "must not exceed tile_elems")
+    _check(k_cap >= 1 and p_cap >= 0 and k_cap * tile_elems < 2**31,
+           "bad k_cap or p_cap")
+    valid_count = int(valid_count)
+    if not _kernel_device(elems):
+        return hot_combo_plain(
+            elems, counts, valid_count, shift_cur, shift_prev, expected,
+            recovery, tile_elems=tile_elems, length=length,
+            signed_compare=signed_compare, k_cap=k_cap, p_cap=p_cap,
+        )
+    from ._build import load_library
+
+    lib = load_library()
+    width = elems.element_size()
+    n_combo = COMBO_HEADER + 2 * k_cap + 3 * p_cap
+    scratch = lib.mm_hot_combo_scratch_words(k_cap, p_cap, tile_elems,
+                                             width, n_tiles)
+    buf = torch.empty(n_combo + scratch, dtype=torch.int32, device=dev)
+    vt2, vr2 = divmod(valid_count, tile_elems)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mm_hot_combo(
+            elems.data_ptr(), elems.numel() * width, width,
+            counts.data_ptr(), n_tiles, tile_elems, length, vt2, vr2,
+            shift_cur.data_ptr(), shift_prev.data_ptr(), expected.data_ptr(),
+            int(shift_cur.shape[0]), int(bool(signed_compare)),
+            recovery.data_ptr(), k_cap, p_cap, buf.data_ptr(),
+            buf.data_ptr() + 4 * n_combo, stream,
+        )
+    _raise_on(rc, "hot_combo")
+    launch_counts["hot_combo"] += 1
+    profiling.count("step.tail_kernel", 1)
+    return buf[:n_combo]
+
+
+def hot_combo_plain(
+    elems, counts, valid_count, shift_cur, shift_prev, expected, recovery,
+    *, tile_elems, length, signed_compare, k_cap, p_cap,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hot_combo`
+    (:func:`scan_torch.hot_tail`; reads the shift tables back to the
+    host)."""
+    return scan_torch.hot_tail(
+        elems, counts, valid_count,
+        tuple(zip(shift_cur.tolist(), shift_prev.tolist())), expected,
+        recovery, tile_elems=tile_elems, length=length,
+        signed_compare=signed_compare, k_cap=k_cap, p_cap=p_cap,
+    )
 
 
 _multi_memo: dict = {}
@@ -621,8 +731,8 @@ def tile_counts_multi_gather(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused phases 1 + 2 for a keyword batch over one grid chunk
     (``_swar_multi_gather_call``), enqueued with no host sync: kernel C
-    counts every pattern in one pass, then each pattern's hot tiles are
-    gathered (kernel B) and re-checked exactly.  Returns device tensors
+    counts every pattern in one pass, then kernel L re-checks each
+    pattern's hot tiles exactly.  Returns device tensors
     ``(counts (K, T) int32, combos int32)``: the K per-pattern combo
     buffers concatenated, the batch's one device→host copy."""
     table, last_starts = multi_operand(pats, valid_count, words.device)
@@ -631,9 +741,8 @@ def tile_counts_multi_gather(
         tile_elems=tile_elems,
     )
     return counts, torch.cat([
-        _hot_slots_and_combo(
-            pat, words, counts[k], valid_count, tile_elems, k_cap, p_cap
-        )
+        _fused_tail(pat, words, counts[k], valid_count, tile_elems, k_cap,
+                    p_cap)
         for k, pat in enumerate(pats)
     ])
 

@@ -1,15 +1,18 @@
 """Plain tensor code of the fused device step — counterpart of the JAX
 package's ``ops/scan_jnp.py``.
 
-The JAX package computes these pieces with XLA, outside any Pallas kernel,
-so the port keeps the fused step's as plain PyTorch on the card too.  They
-enqueue work and never synchronise with the host (no ``torch.nonzero``,
-boolean-mask indexing, ``.item()`` or host uploads), so
+The JAX package computes these pieces with XLA, outside any Pallas kernel;
+the port keeps them as plain PyTorch, on the card where no kernel takes
+their place (``scan_cuda.all_windows_counts``, ``perf_probe``'s ``ab``
+tails).  They enqueue work and never synchronise with the host (no
+``torch.nonzero``, boolean-mask indexing, ``.item()`` or host uploads), so
 ``dense.fused_count_extract_start`` returns as soon as the step is queued.
 The exact match-and-compact scan (:func:`match_bitmap`,
 :func:`compact_matches`, :func:`scan_chunk`) is the plain version of kernel
-K (``ops/scan_cuda.scan_chunk``), which runs it on the card; like the other
-kernels' plain versions, it reads its check tables back to the host.
+K (``ops/scan_cuda.scan_chunk``), and the step's tail (:func:`hot_tail`:
+:func:`nonzero_capped`, then :func:`slots_combo`) that of kernel L
+(``ops/scan_cuda.hot_combo``), which run them on the card; like the other
+kernels' plain versions, they read check tables back to the host.
 
 Element values travel as int32 tensors holding the unsigned element value:
 torch has no uint16 arithmetic on the CPU, and ``>>`` on int32 is
@@ -41,6 +44,8 @@ __all__ = [
     "scan_chunk",
     "exact_phase2",
     "fused_body",
+    "hot_tail",
+    "slots_combo",
     "pack_combo",
 ]
 
@@ -318,9 +323,8 @@ def fused_body(
     pairs_exact: Sequence[Tuple[int, int]],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole fused step on an unpacked element buffer in plain tensor
-    code (``scan_jnp.fused_body_xla``): :func:`count_body`, the first
-    ``k_cap`` hot tiles, each sliced out with its halo tile, the exact
-    phase 2 and the combo buffer.  Returns ``(counts, combo)``.
+    code (``scan_jnp.fused_body_xla``): :func:`count_body`, then
+    :func:`hot_tail`.  Returns ``(counts, combo)``.
 
     ``elems``: ``(T+1) * tile_elems`` u8/u16 elements; ``expected`` and
     ``pairs``: the selected prefilter checks; ``expected_exact`` and
@@ -328,22 +332,70 @@ def fused_body(
     width = elems.element_size()
     counts = count_body(widen(elems), valid_count, expected, pairs, length,
                         tile_elems, width)
+    return counts, hot_tail(
+        elems, counts, valid_count, pairs_exact, expected_exact, recovery,
+        tile_elems=tile_elems, length=length, signed_compare=signed_compare,
+        k_cap=k_cap, p_cap=p_cap,
+    )
+
+
+def hot_tail(
+    elems: torch.Tensor,
+    counts: torch.Tensor,
+    valid_count: int,
+    pairs_exact: Sequence[Tuple[int, int]],
+    expected: torch.Tensor,
+    recovery: torch.Tensor,
+    *,
+    tile_elems: int,
+    length: int,
+    signed_compare: bool,
+    k_cap: int,
+    p_cap: int,
+) -> torch.Tensor:
+    """The fused step's tail after the counts in plain tensor code, the
+    plain version of kernel L (``ops/scan_cuda.hot_combo``): the first
+    ``k_cap`` hot tiles of ``counts``, each sliced out of ``elems`` with the
+    next ``length - 1`` elements, then :func:`slots_combo`."""
     hot = nonzero_capped(counts, k_cap)
-    nhot = (counts > 0).sum(dtype=torch.int32)
     # hot ids are below T and the buffer holds T+1 tiles: no slice reads
     # past the end
     idx = hot.to(torch.int64)[:, None] * tile_elems + torch.arange(
         tile_elems + length - 1, dtype=torch.int64, device=elems.device
     )
-    src = elems.view(torch.int16) if width == 2 else elems
-    slots = src[idx].view(elems.dtype)
+    src = elems.view(torch.int16) if elems.dtype == torch.uint16 else elems
+    return slots_combo(
+        src[idx].view(elems.dtype), counts, hot, valid_count, pairs_exact,
+        expected, recovery, tile_elems=tile_elems, length=length,
+        signed_compare=signed_compare, p_cap=p_cap,
+    )
+
+
+def slots_combo(
+    slots: torch.Tensor,
+    counts: torch.Tensor,
+    hot: torch.Tensor,
+    valid_count: int,
+    pairs_exact: Sequence[Tuple[int, int]],
+    expected: torch.Tensor,
+    recovery: torch.Tensor,
+    *,
+    tile_elems: int,
+    length: int,
+    signed_compare: bool,
+    p_cap: int,
+) -> torch.Tensor:
+    """:func:`exact_phase2` over the hot tiles' ``slots`` (each ``tile_elems
+    + length - 1`` elements of tile ``hot[i]``) and the combo buffer
+    (:func:`pack_combo`)."""
+    nhot = (counts > 0).sum(dtype=torch.int32)
     n_cand, flat_idx, v0, v1 = exact_phase2(
         slots, hot, nhot, valid_count // tile_elems, valid_count % tile_elems,
         tile_elems=tile_elems, length=length, pairs_exact=pairs_exact,
-        expected=expected_exact, signed_compare=signed_compare,
+        expected=expected, signed_compare=signed_compare,
         recovery=recovery, p_cap=p_cap,
     )
-    return counts, pack_combo(counts, hot, nhot, n_cand, flat_idx, v0, v1)
+    return pack_combo(counts, hot, nhot, n_cand, flat_idx, v0, v1)
 
 
 def pack_combo(counts, hot, nhot, n_cand, flat_idx, v0, v1) -> torch.Tensor:

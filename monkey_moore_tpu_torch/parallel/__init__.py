@@ -5,8 +5,8 @@
   (a device may repeat: ``["cuda:0"] * 4`` is four shards on one card);
 - ``resident``  — the file resident across a mesh, one word buffer per
   shard, every grid derived on its shard with its halo tile in place;
-- ``sharded``   — the fused steps on every shard (kernels A and B, or C
-  and B for keyword batches), each shard's work enqueued before any
+- ``sharded``   — the fused steps on every shard (kernels A and L, or C
+  and L for keyword batches), each shard's work enqueued before any
   result is fetched, and the exact match-and-compact scan
   (:func:`sharded_candidates`, :func:`sharded_scan_fn`: kernel K per
   shard with an ``L - 1`` halo);

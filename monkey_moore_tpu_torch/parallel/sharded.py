@@ -13,11 +13,11 @@ shard (the one whose tiles contain its start), so no dedup is needed.
 Each jitted ``shard_map`` body of the JAX module is a loop over the
 shards here, which enqueues every shard's work before any result is
 fetched: :func:`sharded_fused_dispatch` launches the port's fused step on
-each shard's device (kernel A and then the hot-tile tail with kernel B on
+each shard's device (kernel A and then the hot-tile tail, kernel L, on
 packed words; the all-wildcard body, :func:`..ops.scan_cuda.
 all_windows_gather`, when the pattern has no prefilter check), and
 :func:`sharded_fused_multi_step` the keyword-batch step (kernel C, then
-B).  On CPU tensors they run the kernels' plain versions, as everywhere in
+L).  On CPU tensors they run the kernels' plain versions, as everywhere in
 the port.  :func:`parse_sharded_combos` copies the per-shard result
 buffers back and decodes them; on capacity overflow it returns the global
 counts for the host extraction, as the JAX module does.
@@ -211,7 +211,7 @@ def _fused_mode(use_pallas: bool, tile_elems: int, max_shift: int) -> str:
 
 def _words_fit(tile_elems: int, width: int) -> bool:
     """True when a tile is whole int32 words (so shards are packed words,
-    kernels A and B); tinier tiles travel as elements (kernels D and E)."""
+    kernels A and L); tinier tiles travel as elements (kernels D and L)."""
     return (tile_elems * width) % 4 == 0
 
 
@@ -338,7 +338,7 @@ def sharded_fused_dispatch(
     JAX ``shard_map`` body), fetching nothing: returns the per-shard
     ``(counts, combos)`` device tensors.  A pattern with no prefilter
     check takes the all-wildcard body (no counts kernel), packed words
-    kernels A and B, element buffers D and E."""
+    kernels A and L, element buffers D and L."""
     pairs, _, _ = _prefilter_sel(pat)
     counts, combos = [], []
     for shard, valid in zip(shards, valid_loc.tolist()):
@@ -500,8 +500,8 @@ def sharded_fused_multi_step(
     grid_offset: int = 0,
 ):
     """K patterns × one sharded grid: kernel C counts every pattern on
-    each shard in one pass, then each pattern's hot tiles are gathered
-    (kernel B) and exactly re-checked, every shard enqueued before the
+    each shard in one pass, then each pattern's hot tiles are exactly
+    re-checked (kernel L), every shard enqueued before the
     per-shard result buffers come back.
 
     ``shards`` are the packed word grids of ``ShardedResidentCorpus.grid``

@@ -23,12 +23,16 @@ Stages (``--stage``, comma-separated; default ``floor,roofline,kernel``):
             8 KiB count tiles, "abcde" and "ab*de"
   sol       speed-of-light ratio: counts kernel A against the pure-load
             kernel J (``ops.scan_cuda.load_sum``) at the same 2 MiB tiles
-  ab        same-process A/B of the hot-tile gathers under the fused
+  ab        same-process A/B of the step's tail under the fused
             wildcard step ("ab*de", 8 KiB tiles, the high hot-tile regime):
-            kernel B (``dma``, the default), kernel E's entry on the same
-            bytes (``block``) and ``index_select`` of the tile view
-            (``take``, the counterpart of the XLA take); the three combo
-            buffers must be equal before any record is printed
+            kernel L, which reads the hot tiles straight from the chunk
+            (``fused``, the default), and the plain tail after kernel E's
+            entry on the same bytes (``block``) or ``index_select`` of the
+            tile view (``take``, the counterpart of the XLA take); the
+            three combo buffers must be equal before any record is
+            printed.  Older ``ab_gather_dma_fused_wildcard`` records timed
+            kernel B's gather and the plain tail, which no step runs now:
+            they do not compare with ``ab_gather_fused_fused_wildcard``
 
 The JAX probe's ``ab`` part (a), its counts-kernel formulation switch, has
 no counterpart: the CUDA kernels have one formulation.
@@ -90,8 +94,10 @@ def make_timeit(iters):
 
 
 def gather_combos(pat, data, n: int, tile_elems: int) -> dict:
-    """The fused step's combo buffer (host int32 array) with each gather of
-    :data:`GATHER_MODES` on the same words."""
+    """The fused step's combo buffer (host int32 array) with each tail of
+    :data:`GATHER_MODES` on the same words: kernel L for ``fused``; the
+    ``block`` and ``take`` gathers keep the plain tail, as this diagnostic
+    compares them."""
     return {gm: fused_count_extract_start(pat, data, n, tile_elems=tile_elems,
                                           gather=gm).combo_dev.cpu().numpy()
             for gm in GATHER_MODES}
@@ -256,7 +262,7 @@ def main(argv=None) -> int:
         data = tile_view(words, n, te)
         pw = compile_pattern("ab*de", "*")
         combos = gather_combos(pw, data, n, te)
-        if any(not np.array_equal(c, combos["dma"]) for c in combos.values()):
+        if any(not np.array_equal(c, combos["fused"]) for c in combos.values()):
             print("perf_probe: the gathers' combo buffers differ",
                   file=sys.stderr)
             return 1

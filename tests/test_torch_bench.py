@@ -226,7 +226,7 @@ def test_perf_probe_refuses_the_unported_stage(capsys):
     part (b), the gathers); a stage it does not have still exits 2."""
     names = _probe_names("ab", capsys)
     assert names[2:] == [f"ab_gather_{gm}_fused_wildcard"
-                         for gm in ("dma", "block", "take")]
+                         for gm in ("fused", "block", "take")]
     assert perf_probe.main(["--device", "cpu", "--stage", "ab,abc"]) == 2
     assert "unknown stages: ['abc']" in capsys.readouterr().err
 

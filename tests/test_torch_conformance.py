@@ -57,12 +57,12 @@ def test_gen_trial_draws_the_tools_cases(tool, seed, mod):
 
 
 def _spy_plain(monkeypatch):
-    """Count the calls of the plain versions of kernels A-E (a wrapper
-    calls its plain version for a CPU tensor)."""
+    """Count the calls of the plain versions of kernels A-E and L (a
+    wrapper calls its plain version for a CPU tensor)."""
     calls = {}
     for name in ("tile_counts_plain", "gather_tiles_plain",
                  "tile_counts_multi_plain", "tile_counts_elems_plain",
-                 "gather_tiles_block_plain"):
+                 "gather_tiles_block_plain", "hot_combo_plain"):
         real = getattr(scan_cuda, name)
 
         def spy(*args, _real=real, _name=name, **kwargs):
@@ -108,15 +108,17 @@ def test_run_gate_on_the_cpu_passes_on_every_route(monkeypatch):
     assert result["passed"] > 30 and result["multi_checked"] > 0
     assert sum(result["mode_counts"].values()) == 12
     assert routes == {"host", "resident", "stream"}
-    for name in ("tile_counts_plain", "gather_tiles_plain",
-                 "tile_counts_elems_plain", "gather_tiles_block_plain"):
+    for name in ("tile_counts_plain", "tile_counts_elems_plain",
+                 "hot_combo_plain"):
         assert calls.get(name, 0) > 0, calls
+    for name in ("gather_tiles_plain", "gather_tiles_block_plain"):
+        assert calls.get(name, 0) == 0, calls
 
 
 @pytest.mark.parametrize("seed", [3, 8])
 def test_run_gate_takes_the_mesh(monkeypatch, seed):
     """The default pass: ``t % 3 == 2`` runs on ``[device] * n`` with the
-    tool's draw of n — the resident mesh route, kernels A and B on every
+    tool's draw of n — the resident mesh route, kernels A and L on every
     shard — with no failure."""
     routes = _spy_routes(monkeypatch)
     calls = _spy_plain(monkeypatch)
@@ -125,9 +127,10 @@ def test_run_gate_takes_the_mesh(monkeypatch, seed):
     assert result["failed"] == 0, result["failures"]
     assert result["multi_checked"] > 0
     assert routes == {"host", "resident", "mesh"}
-    for name in ("tile_counts_plain", "gather_tiles_plain"):
+    for name in ("tile_counts_plain", "hot_combo_plain"):
         assert calls.get(name, 0) > 0, calls
     assert calls.get("tile_counts_elems_plain", 0) == 0, calls
+    assert calls.get("gather_tiles_plain", 0) == 0, calls
 
 
 def test_summary_equals_the_tools(tool, capsys, monkeypatch):

@@ -225,7 +225,8 @@ def test_fused_step_elements_cuda_equals_fused_body(cuda, width):
     got = scan_cuda.tile_counts_gather_elems(pat, elems, n_valid, te, 8, 16)
     torch.cuda.synchronize()
     assert scan_cuda.launch_counts["tile_counts_elems"] == 1
-    assert scan_cuda.launch_counts["gather_tiles_block"] == 1
+    assert scan_cuda.launch_counts["hot_combo"] == 1
+    assert scan_cuda.launch_counts["gather_tiles_block"] == 0
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -320,7 +321,8 @@ def test_engine_cuda_equals_cpu(cuda, tmp_path):
     scan_cuda.reset_launch_counts()
     res_gpu = SearchEngine(cfg, device="cuda").run()
     assert scan_cuda.launch_counts["tile_counts"] > 0
-    assert scan_cuda.launch_counts["gather_tiles"] > 0
+    assert scan_cuda.launch_counts["hot_combo"] > 0
+    assert scan_cuda.launch_counts["gather_tiles"] == 0
     res_cpu = SearchEngine(cfg, device="cpu").run()
     assert [r.offset for r in res_gpu] == [r.offset for r in res_cpu]
     assert [r.values_map for r in res_gpu] == [r.values_map for r in res_cpu]
@@ -686,7 +688,7 @@ MESH_STATS = ("hot_tiles", "candidates", "fused_steps", "fused_fallbacks",
     dict(keyword="monkey", resident_bytes_limit=0, device_chunk_bytes=65_536),
 ])
 def test_mesh_engine_equals_cpu_mesh(cuda, tmp_path, kwargs):
-    """The engine on ``["cuda:0"] * 4`` (kernels A and B on every shard)
+    """The engine on ``["cuda:0"] * 4`` (kernels A and L on every shard)
     against the same mesh of CPU shards (the plain versions): results and
     stats, first search and repeat."""
     from monkey_moore_tpu_torch.engine import SearchEngine
@@ -707,7 +709,8 @@ def test_mesh_engine_equals_cpu_mesh(cuda, tmp_path, kwargs):
                 (got, [getattr(engine.last_stats, k) for k in MESH_STATS]))
         launches = dict(scan_cuda.launch_counts)
         if dev == "cuda:0":
-            assert launches["gather_tiles"] > 0, launches
+            assert launches["hot_combo"] > 0, launches
+            assert launches["gather_tiles"] == 0, launches
             assert launches["tile_counts_elems"] == 0, launches
             assert launches["gather_tiles_block"] == 0, launches
     clear_sharded_corpus_cache()
@@ -756,10 +759,10 @@ def test_sharded_fused_step_equals_cpu(cuda, tile_elems):
 
 @pytest.mark.parametrize("width", [1, 2])
 def test_gather_modes_give_equal_combos(cuda, width):
-    """``perf_probe``'s ``ab`` gathers on the card (kernel B, kernel E's
-    entry on the same bytes, ``index_select`` of the tile view): the same
-    combo buffer, equal to the CPU step's, with more hot tiles than the
-    step's ``k_cap`` in one case."""
+    """``perf_probe``'s ``ab`` tails on the card (kernel L; the plain tail
+    after kernel E's entry on the same bytes or ``index_select`` of the
+    tile view): the same combo buffer, equal to the CPU step's, with more
+    hot tiles than the step's ``k_cap`` in one case."""
     from monkey_moore_tpu_torch import bench, perf_probe
     from monkey_moore_tpu_torch.dense import fused_count_extract_start
     from monkey_moore_tpu_torch.ops.host import LANES
@@ -782,7 +785,183 @@ def test_gather_modes_give_equal_combos(cuda, width):
         assert (want[0] > pending.k_cap) == (plants == 60)
         scan_cuda.reset_launch_counts()
         combos = perf_probe.gather_combos(pat, data.to(cuda), n, te)
-        assert scan_cuda.launch_counts["gather_tiles"] == 1
+        assert scan_cuda.launch_counts["hot_combo"] == 1
+        assert scan_cuda.launch_counts["gather_tiles"] == 0
         assert scan_cuda.launch_counts["gather_tiles_block"] == 1
         for gm, combo in combos.items():
             assert np.array_equal(combo, want), (gm, plants)
+
+
+def _tail_cases(te):
+    """Kernel L's cases at tiles of *te* elements (the CPU cases of
+    ``tests/test_torch_elems.py``): name -> ``(keyword, wildcard, dtype,
+    tiles T, valid count, plants, background)``."""
+    return {
+        "no-hot-tile": ("abcde", 0, np.uint8, 4, 4 * te, [], "zeros"),
+        "wild-one-hot-partial": ("ab*de", "*", np.uint8, 4, 4 * te - 5,
+                                 [te + 7], "random"),
+        "u16-n-hot-at-k-cap": ("abcde", 0, np.uint16, 6, 6 * te,
+                               [3, 2 * te + 9, 3 * te + 30, 5 * te + 50],
+                               "random"),
+        "u16-wild-n-hot-over-k-cap": ("ab*de", "*", np.uint16, 6, 6 * te,
+                                      [t * te + 11 for t in range(5)],
+                                      "random"),
+        "n-cand-over-p-cap": ("abcde", 0, np.uint8, 3, 3 * te - 1, [],
+                              "ramp"),
+        "partial-last-tile": ("abcde", 0, np.uint8, 4, 3 * te + 17,
+                              [1, 3 * te + 12, 3 * te + 19], "random"),
+        "last-tile-halo-padding": ("abcde", 0, np.uint8, 3, 3 * te,
+                                   [3 * te - 9, 3 * te - 2], "random"),
+        "u16-wild-recovery-at-limit": ("??cde", "?", np.uint16, 3,
+                                       2 * te + 9, [2 * te + 4], "random"),
+        "wild-recovery-clamped": ("?bcdE", "?", np.uint8, 3, 3 * te, [],
+                                  "zeros"),
+    }
+
+
+def _tail_operands(name, te, seed=0):
+    """A case's elements (numpy), its counts (kernel D's plain version) and
+    its pattern."""
+    kw, wc, dtype, n_tiles, n, plants, background = _tail_cases(te)[name]
+    pat = compile_pattern(kw, wc, dtype=dtype)
+    mod = 1 << (8 * np.dtype(dtype).itemsize)
+    rng = np.random.default_rng(seed)
+    arr = np.zeros((n_tiles + 1) * te, dtype=dtype)
+    if background == "random":
+        arr[:n] = rng.integers(0, mod, n)
+    elif background == "ramp":
+        arr[:n] = np.arange(n) % mod
+    arr[n:] = rng.integers(0, mod, len(arr) - n)
+    kwv = ((np.array(pat.keyword, dtype=np.int64) + 7) % mod).astype(dtype)
+    arr[n_tiles * te + 3 : n_tiles * te + 3 + pat.length] = kwv
+    for pos in plants:
+        arr[pos : pos + pat.length] = kwv
+    counts = scan_cuda.tile_counts_elems(
+        torch.from_numpy(arr), scan_cuda.prefilter_operand(pat, "cpu"),
+        tile_elems=te, length=pat.length, valid_count=n)
+    return pat, arr, counts, n
+
+
+def _hot_combo_both(pat, elems_cpu, elems_dev, counts, n, te, k_cap, p_cap):
+    """Kernel L on *elems_dev* and its plain version on *elems_cpu*: the
+    two combo buffers, the kernel's launched once and synchronised."""
+    from monkey_moore_tpu_torch.ops.scan_torch import pattern_device_args
+
+    args = dict(tile_elems=te, length=pat.length,
+                signed_compare=pat.signed_compare, k_cap=k_cap, p_cap=p_cap)
+    want = scan_cuda.hot_combo_plain(
+        elems_cpu, counts, n, *pattern_device_args(pat, "cpu"), **args)
+    before = scan_cuda.launch_counts["hot_combo"]
+    got = scan_cuda.hot_combo(
+        elems_dev, counts.to(elems_dev.device), n,
+        *pattern_device_args(pat, elems_dev.device), **args)
+    torch.cuda.synchronize()
+    assert scan_cuda.launch_counts["hot_combo"] == before + 1
+    return got.cpu(), want
+
+
+TAIL_NAMES = list(_tail_cases(1))
+
+
+@pytest.mark.parametrize("te", [64, 65_536])
+@pytest.mark.parametrize("name", TAIL_NAMES)
+def test_hot_combo_kernel_equals_plain(cuda, name, te):
+    """Kernel L against its plain version, every entry of the combo
+    buffer (fillers included), k_cap 4 and p_cap 8: tiles of 64 elements
+    (one unit a slot) and of 64 Ki (4 units a slot at u8, 8 at u16)."""
+    pat, arr, counts, n = _tail_operands(name, te)
+    got, want = _hot_combo_both(pat, torch.from_numpy(arr),
+                                torch.from_numpy(arr).to(cuda), counts, n,
+                                te, 4, 8)
+    assert torch.equal(got, want)
+    n_hot, n_cand = int(want[0]), int(want[2])
+    assert (n_hot == 0) == name.endswith(("no-hot-tile", "clamped"))
+    assert (n_hot > 4) == ("over-k-cap" in name)
+    assert (n_cand > 8) == ("over-p-cap" in name)
+
+
+@pytest.mark.parametrize("k_cap", [4, 64])
+@pytest.mark.parametrize("n_tiles", [5_000, 1_100_000])
+def test_hot_combo_kernel_over_many_select_blocks(cuda, n_tiles, k_cap):
+    """Kernel L with its counts spread over many select blocks (1024
+    counts a block up to 2^20 tiles, 2048 past that): hot tiles on both
+    sides of block edges, blocks with none between them, fewer and more
+    hot tiles than k_cap; equal to the plain version, every entry."""
+    te = 8
+    pat = compile_pattern("abcde")
+    rng = np.random.default_rng(n_tiles + k_cap)
+    arr = rng.integers(0, 256, (n_tiles + 1) * te).astype(np.uint8)
+    hot = sorted({0, 1023, 1024, 2047, 2048, 4095, n_tiles // 2,
+                  n_tiles - 1} | set(rng.choice(n_tiles, 40,
+                                                replace=False).tolist()))
+    kwv = ((np.array(pat.keyword, dtype=np.int64) + 7) % 256).astype(
+        np.uint8)
+    for t in hot:
+        arr[t * te + 1 : t * te + 1 + pat.length] = kwv
+    counts = torch.zeros(n_tiles, dtype=torch.int32)
+    counts[torch.tensor(hot)] = torch.from_numpy(
+        rng.integers(1, 4, len(hot)).astype(np.int32))
+    got, want = _hot_combo_both(pat, torch.from_numpy(arr),
+                                torch.from_numpy(arr).to(cuda), counts,
+                                n_tiles * te, te, k_cap, 64)
+    assert torch.equal(got, want)
+    assert int(want[0]) == len(hot) and int(want[2]) >= min(len(hot), k_cap)
+
+
+@pytest.mark.parametrize("width,offset", [(1, 1), (1, 7), (2, 2), (2, 14)])
+def test_hot_combo_kernel_on_a_view_inside_a_word(cuda, width, offset):
+    """Kernel L on elements *offset* bytes into a larger buffer, so that
+    its first and last words hold bytes of no element (the Reader's
+    masks), with hot tiles at both ends: equal to the plain version."""
+    name = "wild-one-hot-partial" if width == 1 else "u16-n-hot-at-k-cap"
+    pat, arr, counts, n = _tail_operands(name, 4096, seed=offset)
+    counts[0] = max(int(counts[0]), 1)  # the first tile is hot too
+    raw = torch.zeros(arr.nbytes + offset + 16, dtype=torch.uint8)
+    raw[offset : offset + arr.nbytes] = torch.from_numpy(arr.view(np.uint8))
+    view = raw.to(cuda)[offset : offset + arr.nbytes]
+    elems = view.view(torch.uint16) if width == 2 else view
+    got, want = _hot_combo_both(pat, torch.from_numpy(arr), elems, counts,
+                                n, 4096, 8, 16)
+    assert torch.equal(got, want)
+    assert int(want[0]) >= 2
+
+
+def test_resident_search_runs_the_tail_kernel(cuda, tmp_path, monkeypatch):
+    """One resident engine search on the card under a profiler: kernel L
+    once per fused step, its counter ``step.tail_kernel`` in the run's
+    record once per step too, and ``exact_phase2`` on no CUDA tensor."""
+    from monkey_moore_tpu_torch.engine import SearchEngine
+    from monkey_moore_tpu_torch.ops import scan_torch
+
+    on_cuda = []
+
+    def spy(real):
+        def wrapper(slots, *args, **kwargs):
+            on_cuda.append(slots.is_cuda)
+            return real(slots, *args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(scan_torch, "exact_phase2",
+                        spy(scan_torch.exact_phase2))
+    rng = np.random.default_rng(11)
+    data = rng.integers(0, 256, 3_000_000).astype(np.uint8)
+    for pos in (5, 1_048_570, 2_999_990):
+        data[pos : pos + 6] = [ord(c) + 9 for c in "dragon"]
+    path = tmp_path / "rom.bin"
+    path.write_bytes(data.tobytes())
+    cfg = SearchConfig(file_path=path, keyword="dragon",
+                       device_chunk_bytes=1 << 20,
+                       host_latency_threshold_bytes=0)
+    scan_cuda.reset_launch_counts()
+    engine = SearchEngine(cfg, device="cuda")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = engine.run()
+    steps = engine.last_stats.fused_steps
+    assert steps >= 3
+    assert scan_cuda.launch_counts["hot_combo"] == steps
+    assert engine.last_stats.record.counters["step.tail_kernel"] == steps
+    assert scan_cuda.launch_counts["tile_counts"] == steps
+    assert scan_cuda.launch_counts["gather_tiles"] == 0
+    assert not any(on_cuda)
+    assert [r.offset for r in got] == [5, 1_048_570, 2_999_990]

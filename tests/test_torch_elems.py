@@ -14,6 +14,11 @@ same u8/u16 element arrays made with numpy from a fixed seed:
   element tensors, and the plain twin ``scan_torch.fused_body``) against
   ``_native_counts_gather_call`` (interpret) and
   ``scan_jnp.tile_counts_gather_xla``, combo field by combo field;
+- kernel L's plain version (``scan_cuda.hot_combo_plain``) on the counts
+  and elements of ``scan_jnp.tile_counts_gather_xla``, combo field by combo
+  field: no hot tile, one, k_cap and more, more matches than p_cap, a
+  partial last tile, the last tile's halo in the padding tile, and a
+  recovery shift at and past the slot's valid limit;
 - ``dense_search`` / ``dense_candidates`` / ``two_phase_candidates``
   against the JAX functions on the named corpora of ``tests/test_scan.py``
   and its width-1/width-2 fuzz.
@@ -359,6 +364,97 @@ def test_fused_body_equals_xla(kw, wc, dtype):
     step = scan_cuda.tile_counts_gather_elems(
         carry_over(pat), torch.from_numpy(arr), n, te, 4, 8)
     assert torch.equal(step[1], t_combo)
+
+
+TAIL_TE = 64
+
+#: kernel L's cases: (keyword, wildcard, dtype, tiles T, valid count,
+#: plants, background, what the case must show); the buffer holds T + 1
+#: tiles of TAIL_TE, its padding tile junk with a keyword copy inside
+TAIL_CASES = {
+    "u8-no-hot-tile": ("abcde", 0, np.uint8, 4, 4 * TAIL_TE, [], "zeros",
+                       dict(n_hot=0)),
+    "u8-wild-one-hot-partial": ("ab*de", "*", np.uint8, 4, 4 * TAIL_TE - 5,
+                                [TAIL_TE + 7], "random", dict(n_hot=1)),
+    "u16-n-hot-at-k-cap": ("abcde", 0, np.uint16, 6, 6 * TAIL_TE,
+                           [3, 2 * TAIL_TE + 9, 3 * TAIL_TE + 30,
+                            5 * TAIL_TE + 50], "random", dict(n_hot=4)),
+    "u16-wild-n-hot-over-k-cap": ("ab*de", "*", np.uint16, 6, 6 * TAIL_TE,
+                                  [t * TAIL_TE + 11 for t in range(5)],
+                                  "random", dict(n_hot=5)),
+    "u8-n-cand-over-p-cap": ("abcde", 0, np.uint8, 3, 3 * TAIL_TE - 1, [],
+                             "ramp", dict(n_cand_over=True)),
+    "u8-partial-last-tile": ("abcde", 0, np.uint8, 4, 3 * TAIL_TE + 17,
+                             [1, 3 * TAIL_TE + 12, 3 * TAIL_TE + 19],
+                             "random", dict(n_cand=2)),
+    "u8-last-tile-halo-padding": ("abcde", 0, np.uint8, 3, 3 * TAIL_TE,
+                                  [3 * TAIL_TE - 9, 3 * TAIL_TE - 2],
+                                  "random", dict(n_cand=1)),
+    "u16-wild-recovery-at-limit": ("??cde", "?", np.uint16, 3,
+                                   2 * TAIL_TE + 9, [2 * TAIL_TE + 4],
+                                   "random", dict(n_cand=1)),
+    "u8-wild-recovery-clamped": ("?bcdE", "?", np.uint8, 3, 3 * TAIL_TE, [],
+                                 "zeros", dict(n_hot=0)),
+}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_hot_combo_plain_equals_xla(case):
+    """Kernel L's plain version (``scan_cuda.hot_combo_plain``, and the
+    wrapper on CPU tensors) on the counts and elements of
+    ``scan_jnp.tile_counts_gather_xla``, the JAX reference's fused step:
+    every field ``combo_fields`` reads equal, and the hot tiles' counts,
+    with k_cap 4 and p_cap 8 over tiles of 64 elements."""
+    kw, wc, dtype, n_tiles, n, plants, background, shows = TAIL_CASES[case]
+    pat = compile_pattern(kw, wc, dtype=dtype)
+    te, k_cap, p_cap, L = TAIL_TE, 4, 8, pat.length
+    mod = 1 << (8 * np.dtype(dtype).itemsize)
+    rng = np.random.default_rng(len(case))
+    arr = np.zeros((n_tiles + 1) * te, dtype=dtype)
+    if background == "random":
+        arr[:n] = rng.integers(0, mod, n)
+    elif background == "ramp":  # every window of "abcde" matches
+        arr[:n] = np.arange(n) % mod
+    arr[n:] = rng.integers(0, mod, len(arr) - n)  # junk past the limit
+    kwv = ((np.array(pat.keyword, dtype=np.int64) + 7) % mod).astype(dtype)
+    arr[n_tiles * te + 3 : n_tiles * te + 3 + L] = kwv  # in the padding
+    for pos in plants:
+        arr[pos : pos + L] = kwv
+    pairs, exp = prefilter_checks(pat)
+    pairs_exact = tuple(
+        (int(c), int(p)) for c, p in zip(pat.chk_shift_cur,
+                                         pat.chk_shift_prev))
+    _, _, j_exp, j_rec = pattern_device_args(pat)
+    j_counts, j_combo = tile_counts_gather_xla(
+        jnp.asarray(arr), jnp.int32(n), jnp.asarray(exp),
+        jnp.asarray([n // te, n % te], dtype=jnp.int32), j_exp, j_rec,
+        pairs=pairs, span=te + L - 1, length=L, tile_elems=te, k_cap=k_cap,
+        p_cap=p_cap, signed_compare=pat.signed_compare,
+        pairs_exact=pairs_exact,
+    )
+    j_combo = np.asarray(j_combo)
+    tables = scan_torch.pattern_device_args(carry_over(pat), "cpu")
+    elems = torch.from_numpy(arr)
+    counts = torch.from_numpy(np.asarray(j_counts).astype(np.int32))
+    args = dict(tile_elems=te, length=L, signed_compare=pat.signed_compare,
+                k_cap=k_cap, p_cap=p_cap)
+    got = scan_cuda.hot_combo_plain(elems, counts, n, *tables, **args)
+    assert torch.equal(scan_cuda.hot_combo(elems, counts, n, *tables, **args),
+                       got)
+    jf = combo_fields(j_combo, k_cap, p_cap)
+    tf = combo_fields(got.numpy(), k_cap, p_cap)
+    assert tf[:3] == jf[:3]
+    m = min(jf[0], k_cap)
+    assert tf[3][:m].tolist() == jf[3][:m].tolist()
+    counts_at = slice(3 + k_cap, 3 + k_cap + m)
+    assert got.numpy()[counts_at].tolist() == j_combo[counts_at].tolist()
+    for g, w in zip(tf[4:], jf[4:]):
+        assert g.tolist() == w.tolist()
+    n_hot, _, n_cand = jf[:3]
+    assert n_hot == shows.get("n_hot", n_hot)
+    assert n_cand == shows.get("n_cand", n_cand)
+    assert (n_cand > p_cap) == shows.get("n_cand_over", False)
+    assert len(got) == 3 + 2 * k_cap + 3 * p_cap
 
 
 def _results(res):

@@ -142,10 +142,10 @@ def test_pipelined_chunks(tmp_path, width, resident):
 def test_streaming_takes_element_step(tmp_path, monkeypatch, width,
                                       endianness):
     """resident_bytes_limit=0: every chunk is uploaded as elements and runs
-    kernels D and E (their plain versions here), never A or B."""
+    kernels D and L (their plain versions here), never A, B or E."""
     from monkey_moore_tpu_torch.ops import scan_cuda
 
-    calls = {"tile_counts_elems": 0, "gather_tiles_block": 0,
+    calls = {"tile_counts_elems": 0, "hot_combo": 0, "gather_tiles_block": 0,
              "tile_counts": 0, "gather_tiles": 0}
 
     def spy(name):
@@ -178,8 +178,9 @@ def test_streaming_takes_element_step(tmp_path, monkeypatch, width,
     res = assert_same_as_jax(cfg)
     assert [r.offset for r in res] == [
         3 * width, 16_380 * width, 33_333 * width, (len(data) - 6) * width]
-    assert calls["tile_counts_elems"] == calls["gather_tiles_block"] > 0
+    assert calls["tile_counts_elems"] == calls["hot_combo"] > 0
     assert calls["tile_counts"] == calls["gather_tiles"] == 0
+    assert calls["gather_tiles_block"] == 0
 
 
 def test_wildcard_16bit_big_endian(tmp_path):

@@ -83,7 +83,7 @@ def test_perf_probe_ab_records(capsys):
                capsys.readouterr().out.splitlines()]
     ab = [r for r in records if r["probe"].startswith("ab_")]
     assert [r["probe"] for r in ab] == [
-        f"ab_gather_{gm}_fused_wildcard" for gm in ("dma", "block", "take")]
+        f"ab_gather_{gm}_fused_wildcard" for gm in ("fused", "block", "take")]
     assert len({(r["hot"], r["fallback"]) for r in ab}) == 1
     assert all(r["ms"] > 0 and r["gbps"] > 0 for r in ab)
 
