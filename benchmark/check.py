@@ -3,21 +3,23 @@
 A run keeps the returned lists of a sample of its requests, drawn from the
 seed as the window runs (a reservoir of :data:`SAMPLE` requests, plus the
 request with the most results), and once the window has closed holds each
-against the plain reference (``reference.py``) on the same image:
-offsets, values maps and previews, all of them exactly.  The one number
-compared is ``requests_wrong``: sampled requests whose list differs from
-the reference's in anything, plus every request of the window that
-raised.  Its limit is 0: the comparison is exact.
+against the plain reference on the same image (``reference.py``, or the
+one the configuration names: ``references/<name>.py``): offsets, values
+maps and previews, all of them exactly.  The one number compared is
+``requests_wrong``: sampled requests whose list differs from the
+reference's in anything, plus every request of the window that raised.
+Its limit is 0: the comparison is exact.
 """
 
 from __future__ import annotations
 
 import sys
-from typing import Dict, List, Optional, Tuple
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from . import reference
+from . import reference, spec
 
 #: requests of a window held against the reference, besides the one with
 #: the most results
@@ -38,8 +40,9 @@ class Sampler:
         self.longest: Optional[tuple] = None
         self.seen = 0
 
-    def offer(self, index: int, keyword: str, results) -> None:
-        """Consider request *index*'s *results* (``SearchResult``s)."""
+    def offer(self, index: int, keyword, results) -> None:
+        """Consider request *index* (stream entry *keyword*) and its
+        *results* (the request's list)."""
         self.seen += 1
         if len(self.kept) < self.size:
             self.kept[index] = (keyword, results)
@@ -74,36 +77,50 @@ def first_difference(got: List[Result], want: List[Result]) -> Optional[str]:
     return None
 
 
-def reference_grids(image: np.ndarray, config: dict, device
-                    ) -> reference.Grids:
+def reference_grids(image: np.ndarray, config: dict, device,
+                    folder: Path = spec.HERE):
+    """The reference's state over *image*: ``grids`` of the reference that
+    *config* names under *folder*, or ``reference.Grids``."""
+    name = config.get("reference")
+    if name is not None:
+        return spec.module("references", name, folder).grids(
+            image, config, device)
     sc = config["search_config"]
     return reference.Grids(image, int(sc["element_width"]),
                            sc.get("endianness", "little") == "big", device)
 
 
-def reference_results(grids: reference.Grids, config: dict, keyword: str,
-                      compare: str = "signed") -> List[Result]:
+def reference_results(grids, config: dict, entry, compare: str = "signed",
+                      folder: Path = spec.HERE) -> list:
+    """The reference's comparable tuples of one stream entry: ``results``
+    of the reference that *config* names under *folder*, or
+    ``reference.search`` of one keyword."""
+    name = config.get("reference")
+    if name is not None:
+        return spec.module("references", name, folder).results(
+            grids, config, entry, compare)
     sc = config["search_config"]
     return reference.search(
-        grids, keyword, sc.get("custom_char_seq", ""),
+        grids, entry, sc.get("custom_char_seq", ""),
         int(sc["preferred_search_block_size"]),
         int(sc["preferred_preview_width"]), compare)
 
 
-def compare(sample: Dict[int, tuple], failed: int,
-            want: Dict[str, List[Result]], log=sys.stderr) -> dict:
+def compare(sample: Dict[int, tuple], failed: int, want: Dict[object, list],
+            log=sys.stderr, to_tuples: Callable = as_tuples) -> dict:
     """``{"requests_wrong": {...}}`` of a run: *sample* maps request index
-    to (keyword, program results), *want* keyword to the reference's
-    results, *failed* counts requests that raised."""
+    to (stream entry, program results), *want* entry to the reference's
+    tuples, *failed* counts requests that raised; *to_tuples* makes the
+    program's results comparable (the request's ``as_tuples``)."""
     wrong = failed
     for index in sorted(sample):
-        keyword, results = sample[index]
+        entry, results = sample[index]
         if results is None:
             continue  # raised: counted in failed
-        diff = first_difference(as_tuples(results), want[keyword])
+        diff = first_difference(to_tuples(results), want[entry])
         if diff is not None:
             wrong += 1
-            print(f"request {index} ({keyword!r}) differs: {diff}"[:2000],
+            print(f"request {index} ({entry!r}) differs: {diff}"[:2000],
                   file=log)
     return {"requests_wrong": {"value": wrong,
                                "limit": LIMITS["requests_wrong"],

@@ -1,13 +1,16 @@
 """One run of one cell: set-up, the measured window, the traced window's
 reduction and the comparison with the reference.
 
-The window is a closed loop of one user: each request builds one
-``SearchEngine`` for one keyword with the configuration's ``SearchConfig``
-and calls ``run(generate_previews=True)`` on the disc image, and the next
-request starts when the list is back.  A request is timed on the host
-clock from the engine's construction to the returned list.  The loop
-stops issuing requests once ``seconds`` have passed; the window ends when
-the last request returns, so every request counted completed inside it.
+The window is a closed loop of one user: each request passes the next
+entry of the mix's stream (a keyword, from ``traffic.make`` or the
+generator the mix names) to the mix's request (unless the mix names
+another, ``requests/engine.py``: one ``SearchEngine`` for one keyword with
+the configuration's ``SearchConfig``, then ``run(generate_previews=True)``
+on the disc image), and the next request starts when the list is back.
+A request is timed on the host clock from the call to the returned list.
+The loop stops issuing requests once ``seconds`` have passed; the window
+ends when the last request returns, so every request counted completed
+inside it.
 
 The image lives in an anonymous in-memory file (``os.memfd_create``),
 read through its ``/proc/self/fd`` path like any file in the page cache,
@@ -30,7 +33,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from . import check, spec, stats, traffic
+from . import check, spec, stats
 
 #: the longest traced window: reading a longer trace would outgrow a
 #: run's time (a traced run reports only per-layer metrics)
@@ -39,9 +42,9 @@ TRACE_WINDOW_S = 20.0
 
 @dataclass
 class Request:
-    keyword: str
+    keyword: object  #: the stream entry: a keyword, or what the mix makes
     wall_s: float
-    stats: object  #: the engine's ``last_stats`` (``SearchStats``)
+    stats: object  #: the request's ``last_stats`` (``SearchStats``)
     results: int
     failed: bool = False
 
@@ -139,12 +142,11 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     and ``traffic`` parameters that replace the cell's; ``max_requests``
     ends the window early (tests only).  ``searcher`` puts another search
     in the program's place (the control, ``control.py``): called once with
-    the image's bytes, it returns a function of one keyword that returns
-    that keyword's result list."""
+    the image's bytes, it returns a function of one stream entry that
+    returns that entry's result list."""
     clock = clock or SetupClock()
     overrides = overrides or {}
     from monkey_moore_tpu_torch import corpus
-    from monkey_moore_tpu_torch.engine import SearchEngine
 
     clock.mark("imports")
     cuda = torch.device(device).type == "cuda"
@@ -162,7 +164,11 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     mix.update(overrides.get("traffic", {}))
     sc_over = overrides.get("search_config", {})
     width = int(config["search_config"]["element_width"])
-    work = traffic.make(config, mix, seed, device,
+    # every plug point is resolved here, once: the window looks up nothing
+    make_traffic = spec.generator(cell)
+    plug = spec.request(cell)
+    to_tuples = getattr(plug, "as_tuples", check.as_tuples)
+    work = make_traffic(config, mix, seed, device,
                         n_bytes=overrides.get("image_bytes"))
     if cuda:
         torch.cuda.empty_cache()
@@ -172,14 +178,11 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     work.image = None
     clock.mark("file_write")
 
-    def request(keyword: str):
-        if search is not None:
-            return None, search(keyword)
-        engine = SearchEngine(
-            search_config(config, keyword, image.path, sc_over),
-            device=device)
-        results = engine.run(generate_previews=True)
-        return engine.last_stats, results
+    if search is not None:
+        def request(entry):
+            return None, search(entry)
+    else:
+        request = plug.make(config, image.path, device, sc_over)
 
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -247,19 +250,20 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     t_ref = time.perf_counter()
     data = image.read()
     image.close()
-    grids = check.reference_grids(data, config, device)
-    want = {kw: check.reference_results(grids, config, kw)
+    grids = check.reference_grids(data, config, device, cell.folder)
+    want = {kw: check.reference_results(grids, config, kw,
+                                        folder=cell.folder)
             for kw in sorted({kw for kw, _ in sample.values()})}
     del grids
-    print(f"reference: {len(want)} keywords of {len(sample)} sampled "
+    print(f"reference: {len(want)} entries of {len(sample)} sampled "
           f"requests in {time.perf_counter() - t_ref:.2f} s", file=log)
     failed = sum(r.failed for r in requests)
-    checks = check.compare(sample, failed, want, log)
+    checks = check.compare(sample, failed, want, log, to_tuples)
 
     run_record = Run(requests, window_s, setup_s, dict(clock.parts),
                      len(data), width, summary)
     metrics = spec.read_metrics(cell.per_layer if trace else cell.end_to_end,
-                                run_record)
+                                run_record, cell.folder)
     _report(run_record, log)
     _report_cpu(own_s, window_s, host_ms, log)
     result = {

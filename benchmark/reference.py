@@ -30,6 +30,11 @@ of the program:
 the control, which breaks the signed comparison that simple mode
 guarantees.  Only keywords of simple mode (no wildcard, one case) are
 supported.
+
+The card holds the image's bytes once; each alignment's differences are
+made from them one slice of at most :data:`SLICE_ELEMS` window starts at a
+time, with a halo of L - 1 elements, so the reference needs the image plus
+a few GiB whatever the image's size.
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ import torch
 __all__ = ["Keyword", "Grids", "search"]
 
 Result = Tuple[int, Dict[int, int], str]
+
+#: window starts of one slice (tests may lower it): at 16 bits a slice's
+#: elements and differences, int32, take 1 GiB each
+SLICE_ELEMS = 1 << 28
 
 
 class Keyword:
@@ -70,9 +79,8 @@ class Keyword:
 
 
 class Grids:
-    """One file's bytes and, on *device*, the signed differences between
-    successive elements of each byte alignment's grid (one grid at 8 bits,
-    two at 16), computed once for every keyword."""
+    """One file's bytes, on the host and once on *device*, from which
+    :func:`search` makes each alignment's differences slice by slice."""
 
     def __init__(self, data: np.ndarray, width: int, big_endian: bool,
                  device="cpu"):
@@ -80,33 +88,26 @@ class Grids:
         self.width = width
         self.big_endian = big_endian
         self.n_bytes = len(data)
-        raw = torch.from_numpy(data).to(device)
-        self.diffs = [_diffs(raw, a, width, big_endian) for a in range(width)]
+        self.raw = torch.from_numpy(data).to(device)
 
 
-def _diffs(raw: torch.Tensor, align: int, width: int,
-           big_endian: bool) -> torch.Tensor:
-    """int16 (8 bits) or int32 (16 bits) differences of the grid of *raw*
-    at byte alignment *align*."""
+def _diffs(raw: torch.Tensor, width: int, big_endian: bool) -> torch.Tensor:
+    """int16 (8 bits) or int32 (16 bits) signed differences between the
+    successive elements that the bytes *raw* hold."""
     if width == 1:
         g = raw.to(torch.int16)
-        return g[1:] - g[:-1]
-    n = (len(raw) - align) // 2
-    hi = raw[align : align + 2 * n : 2].to(torch.int32)
-    lo = raw[align + 1 : align + 2 * n : 2].to(torch.int32)
-    if not big_endian:
-        hi, lo = lo, hi
-    g = hi * 256 + lo
+    else:
+        hi, lo = (raw[0::2], raw[1::2]) if big_endian else (raw[1::2],
+                                                             raw[0::2])
+        g = hi.to(torch.int32)
+        g.mul_(256).add_(lo)
     return g[1:] - g[:-1]
 
 
-def _window_starts(d: torch.Tensor, kw: Keyword, width: int,
-                   compare: str) -> np.ndarray:
-    """Starts of every window of *kw* over the grid whose differences are
-    *d* (ascending element offsets)."""
-    n_windows = d.numel() + 1 - kw.length + 1
-    if n_windows <= 0:
-        return np.zeros(0, dtype=np.int64)
+def _matches(d: torch.Tensor, kw: Keyword, n_windows: int, width: int,
+             compare: str) -> np.ndarray:
+    """Starts, ascending, of the windows of *kw* among the first
+    *n_windows* of the grid whose differences are *d*."""
     mask = torch.ones(n_windows, dtype=torch.bool, device=d.device)
     modulus = 1 << (8 * width)
     for k, e in enumerate(kw.diffs):
@@ -114,10 +115,30 @@ def _window_starts(d: torch.Tensor, kw: Keyword, width: int,
         if compare == "signed":
             mask &= dk == e
         elif compare == "wrap":
-            mask &= torch.remainder(dk.to(torch.int32) - e, modulus) == 0
+            # |dk| < modulus: dk = e modulo 2^(8 * width) has these two
+            # solutions at most
+            r = e % modulus
+            mask &= (dk == r) | (dk == r - modulus)
         else:
             raise ValueError(f"unknown comparison {compare!r}")
     return torch.nonzero(mask).flatten().cpu().numpy().astype(np.int64)
+
+
+def _window_starts(grids: Grids, align: int, kw: Keyword,
+                   compare: str) -> np.ndarray:
+    """Starts of every window of *kw* over the grid at byte alignment
+    *align* (ascending element offsets), a slice at a time."""
+    s = grids.width
+    n_windows = (grids.n_bytes - align) // s - kw.length + 1
+    found = [np.zeros(0, dtype=np.int64)]
+    for w0 in range(0, max(n_windows, 0), SLICE_ELEMS):
+        w1 = min(w0 + SLICE_ELEMS, n_windows)
+        # elements [w0, w1 + L - 1): the slice's windows and their halo
+        raw = grids.raw[align + w0 * s : align + (w1 + kw.length - 1) * s]
+        d = _diffs(raw, s, grids.big_endian)
+        found.append(_matches(d, kw, w1 - w0, s, compare) + w0)
+        del d
+    return np.concatenate(found)
 
 
 def _greedy(starts: np.ndarray, advance: int) -> List[int]:
@@ -183,8 +204,8 @@ def search(grids: Grids, keyword: str, char_seq: str, block_bytes: int,
     n_bytes = grids.n_bytes
     L = kw.length
     found = []
-    for align, d in enumerate(grids.diffs):
-        starts = _window_starts(d, kw, s, compare)
+    for align in range(s):
+        starts = _window_starts(grids, align, kw, compare)
         byte_offs = align + starts * s
         blocks = byte_offs // block_bytes
         for block in np.unique(blocks).tolist():

@@ -1,5 +1,7 @@
-"""The one traffic generator: a disc image and a stream of keywords from a
-configuration, a mix (``traffic/<name>.json``) and a seed.
+"""The default traffic generator: a disc image and a stream of keywords
+from a configuration, a mix (``traffic/<name>.json``) and a seed.  A mix
+that names a ``"generator"`` is made by ``generators/<name>.py`` instead,
+which returns a :class:`Traffic` too (``spec.generator``).
 
 A mix's parameters:
 
@@ -37,7 +39,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Iterator, List, Optional
+from typing import Hashable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -57,11 +59,14 @@ class Plant:
 @dataclass
 class Traffic:
     image: np.ndarray  #: the whole disc image (u8)
-    keywords: List[str]
+    #: the stream's entries, each what one request is given: a keyword
+    #: here, or what another generator makes (such as a tuple of keywords
+    #: for a batch); hashable, and of one kind in one stream
+    keywords: List[Hashable]
     plants: List[Plant]
     #: request weights of each keyword (``script_frequency``), or None
     weights: Optional[np.ndarray]
-    warm: str
+    warm: Hashable  #: the entry of the warm request
     drop_resident: bool
     seed: int
     mix: dict = field(repr=False, default_factory=dict)
