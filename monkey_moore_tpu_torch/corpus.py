@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from .profiling import count, span
 
 __all__ = [
     "ResidentCorpus",
+    "cached_corpus",
     "derive_words",
     "get_resident_corpus",
     "clear_corpus_cache",
@@ -98,6 +99,18 @@ class ResidentCorpus:
         """Byte capacity of the device buffer."""
         return self.device_words.numel() * 4
 
+    def windows(self, starts: Sequence[int], length: int) -> List[bytes]:
+        """The file's bytes ``[start, start + length)`` for each of
+        *starts*, cut at the file's end as a slice of the file is: one
+        gather on the corpus's device and one copy back."""
+        raw = self.device_words.view(torch.uint8)
+        first = torch.tensor(list(starts), dtype=torch.int64,
+                             device=raw.device)
+        index = first[:, None] + torch.arange(length, device=raw.device)
+        rows = raw[index.clamp_(max=raw.numel() - 1)].cpu().numpy()
+        return [row[: max(0, self.n_bytes - b)].tobytes()
+                for row, b in zip(rows, starts)]
+
     def grid_chunk(
         self,
         element_width: int,
@@ -141,11 +154,9 @@ def get_resident_corpus(
         return None
     p = Path(path)
     try:
-        stat = p.stat()
+        key = _key(p, device)
     except OSError:
         return None
-    key = (str(p.resolve()), stat.st_size, stat.st_mtime_ns,
-           str(torch.device(device)))
     # miss-check + build under the lock: concurrent searches must not
     # double-upload a multi-GiB corpus
     with _cache_lock:
@@ -162,6 +173,23 @@ def get_resident_corpus(
             return None
         _cache[key] = corpus
         return corpus
+
+
+def _key(path: Path, device) -> tuple:
+    stat = path.stat()
+    return (str(path.resolve()), stat.st_size, stat.st_mtime_ns,
+            str(torch.device(device)))
+
+
+def cached_corpus(path, device) -> Optional[ResidentCorpus]:
+    """The cached resident corpus of *path* as it is now on *device*, or
+    None; uploads nothing."""
+    try:
+        key = _key(Path(path), device)
+    except OSError:
+        return None
+    with _cache_lock:
+        return _cache.get(key)
 
 
 def clear_corpus_cache() -> None:

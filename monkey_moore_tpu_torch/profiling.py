@@ -35,6 +35,7 @@ __all__ = [
     "Span",
     "SpanRecord",
     "count",
+    "counting",
     "device_trace",
     "run_record",
     "span",
@@ -223,6 +224,12 @@ def count(name: str, n: int) -> None:
     record = _current.record
     if record is not None:
         record.counters[name] = record.counters.get(name, 0) + n
+
+
+def counting() -> bool:
+    """True while the current run keeps its counters (a traced run): a
+    count whose value costs work to compute asks first."""
+    return _current.record is not None
 
 
 @contextlib.contextmanager

@@ -74,3 +74,12 @@ def test_resident_cache(tmp_path):
         assert grid == list(range(1, 17))
     finally:
         tcorpus.clear_corpus_cache()
+
+
+def test_windows_are_slices_of_the_file(corpora):
+    data, _, port = corpora
+    n = len(data)
+    starts = [0, 7, 2000, n - 50, n - 3, n]
+    assert port.windows(starts, 50) == [
+        data[b : b + 50].tobytes() for b in starts]
+    assert port.windows([], 50) == []
