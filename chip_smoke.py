@@ -26,13 +26,17 @@
    more matches than p_cap, the last tile (partial, its halo in the
    padding tile) hot, every entry of the combo equal to its plain
    version's, and timed back to back at 1, 8 and 32 hot tiles beside the
-   plain tail);
+   plain tail; the grid derivation, kernel M, on a 512 MiB chunk at every
+   byte shift, width and byte order and on a view one word past a 16-byte
+   boundary, timed back to back at shift 1 and 0 with the byte swap and on
+   the view, beside its byte bound and the plain version);
 4. writes a 1 GiB file of seeded random bytes with planted keywords and
    searches it through ``monkey_moore_tpu_torch.engine.SearchEngine`` with
    default settings (the resident device route): an 8-bit keyword, an
    8-bit wildcard keyword planted often enough to overflow the fused step,
-   and a 16-bit big-endian keyword.  Every planted offset must be found,
-   and results must equal the same engine's host route;
+   and a 16-bit big-endian keyword, whose grids kernel M derives.  Every
+   planted offset must be found, and results must equal the same engine's
+   host route;
 5. searches the same file for two keyword batches through
    ``monkey_moore_tpu_torch.multi.MultiSearcher``: 8 8-bit keywords (the
    overflowing wildcard keyword among them) and 3 16-bit big-endian ones.
@@ -300,7 +304,7 @@ def kernel_phase(torch):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    err = {"A": 0, "B": 0, "D": 0, "E": 0, "I": 0, "L": 0}
+    err = {"A": 0, "B": 0, "D": 0, "E": 0, "I": 0, "L": 0, "M": 0}
     ms = {"D regimes": []}
     work = {}  # kernel -> (bound_ms, bound_by) at the timed shape
     for width in (1, 2):
@@ -362,6 +366,7 @@ def kernel_phase(torch):
                                 ms, work)
                 del words, elems, got, want, got_d, want_d
                 torch.cuda.empty_cache()
+    derive_checks(torch, scan_cuda, gen, err, ms, work)
     for name in err:
         check(err[name] == 0,
               f"kernel {name} differs from its plain version by {err[name]}")
@@ -409,6 +414,10 @@ def kernel_phase(torch):
             regimes=ms["gather regimes"]),
         row("hot_combo", "hot_combo.cu", tpu + "1163", "L", err["L"],
             ms["L"], ms["L plain"], None, regimes=ms["L regimes"]),
+        row("derive_words", "derive_words.cu",
+            "monkey_moore_tpu/corpus.py:102 (jnp, no Pallas call)", "M",
+            err["M"], ms["M"], ms["M plain"], None,
+            regimes=ms["M regimes"]),
     ], err["I"]
 
 
@@ -735,6 +744,52 @@ def tail_checks(torch, scan_cuda, words, width, valid, err, ms, work):
               f"40 hot tiles", flush=True)
 
 
+def derive_checks(torch, scan_cuda, gen, err, ms, work):
+    """Phase 3, kernel M on a chunk of the main path's 512 MiB (the words
+    of one step and the word it borrows): equal to its plain version at
+    every byte shift, width and byte order, and on a view one word past a
+    16-byte boundary (the word path); timed back to back at shift 1 and 0
+    with the swap (a 16-bit BE search's two alignments) and on the view,
+    beside its byte bound (every word read once and written once) and the
+    plain version's CUDA-event median."""
+    from monkey_moore_tpu_torch.bench import back_to_back_ms, bound
+
+    raw = random_words(torch, gen, CHUNK + 8)[: CHUNK // 4 + 1]
+    view = random_words(torch, gen, CHUNK + 16)[1 : CHUNK // 4 + 2]
+    check(view.data_ptr() % 16 != 0, "the view starts on a 16-byte boundary")
+    for words in (raw, view):
+        for byte_shift in range(4):
+            for width, big in ((1, False), (2, False), (2, True)):
+                got = scan_cuda.derive_words(words, byte_shift, width, big)
+                want = scan_cuda.derive_words_plain(words, byte_shift,
+                                                    width, big)
+                err["M"] = max(err["M"], int(
+                    (got.long() - want.long()).abs().max()))
+                del got, want
+    regimes = []
+    for name, words, byte_shift in (("shift 1, swap", raw, 1),
+                                    ("shift 0, swap", raw, 0),
+                                    ("shift 1, swap, view", view, 1)):
+        kms, host_ms = back_to_back_ms(
+            lambda: scan_cuda.derive_words(words, byte_shift, 2, True))
+        plain_ms = time_ms(torch, lambda: scan_cuda.derive_words_plain(
+            words, byte_shift, 2, True), 5)
+        bound_ms, bound_by = bound(8 * (words.numel() - 1), 0)
+        regimes.append({"regime": name, "ms": kms, "host_ms": host_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by})
+        print(f"phase 3 kernel M, {name} over {CHUNK // MIB} MiB: M "
+              f"{kms:.4f} ms (host {host_ms:.4f}) vs {plain_ms:.4f} ms "
+              f"plain, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / kms:.1f}%); == plain at shifts 0-3, u8, "
+              f"u16 LE and BE, aligned and on the view", flush=True)
+    ms["M regimes"] = regimes
+    ms["M"], ms["M plain"] = regimes[0]["ms"], regimes[0]["plain_ms"]
+    work["M"] = (regimes[0]["bound_ms"], regimes[0]["bound_by"])
+    del raw, view
+    torch.cuda.empty_cache()
+
+
 def multi_kernel_phase(torch, gen):
     """Phase 3, keyword-batch kernel (C) against its plain version at
     K = 8 (``counts_bench.BATCH[:8]``: canonical plain keywords, a
@@ -943,6 +998,8 @@ def slice_phase(torch, workdir: Path):
           and launches["hot_combo"] == launches["tile_counts"]
           and launches["gather_tiles"] == 0,
           f"not kernels A and L on the main path: {launches}")
+    check(launches["derive_words"] > 0,
+          f"the 16-bit BE grids not derived by kernel M: {launches}")
     print(f"phase 4 launches on the main path: {launches}", flush=True)
     resident = {name: [(r.offset, r.values_map) for r in results]
                 for name, (results, _, _) in device_results.items()}

@@ -4,11 +4,9 @@ The interactive workflow uploads a ROM or binary image to the device once
 and runs every search against the resident bytes.  The bytes live as a flat
 little-endian int32 word tensor; every element grid the engine needs (8 or
 16-bit, either endianness, any byte alignment, packed words or elements) is
-derived from it on the device with word shifts and byte swaps.
-
-Torch's ``>>`` on int32 is arithmetic, so every right shift is masked to
-keep sign bits out of the grids.  Word offsets are Python ints (64-bit), so
-corpora past 2^31 bytes address correctly.
+derived from it on the device with word shifts and byte swaps, one pass of
+kernel M (``ops/scan_cuda.derive_words``).  Word offsets are Python ints
+(64-bit), so corpora past 2^31 bytes address correctly.
 
 A process-wide cache holds the most recent corpus, keyed by
 (path, size, mtime, device).
@@ -25,6 +23,7 @@ import torch
 
 from .carry import require_own
 from .config import Endianness
+from .ops import scan_cuda
 from .profiling import count, span
 
 __all__ = [
@@ -44,21 +43,14 @@ def derive_words(raw: torch.Tensor, byte_shift: int, element_width: int,
     """The grid words of ``raw[:-1]`` (int32 words of a little-endian byte
     stream plus one word to borrow from): the stream shifted down by
     ``byte_shift`` bytes, then each 16-bit element byte-swapped when
-    ``big``.  A view of ``raw[:-1]`` where there is nothing to derive."""
+    ``big``.  A view of ``raw[:-1]`` where there is nothing to derive;
+    otherwise one pass of kernel M (``scan_cuda.derive_words``; its plain
+    version on the CPU)."""
     swap = element_width == 2 and big
     if not (byte_shift or swap):
         return raw[:-1]  # a view: nothing to derive
     with span("mm.corpus.derive"):
-        w = raw[:-1]
-        if byte_shift:
-            k = 8 * byte_shift
-            low = (w >> k) & ((1 << (32 - k)) - 1)
-            w = low | (raw[1:] << (32 - k))
-        if swap:
-            # byte swap within each 16-bit element
-            high = (w << 8) & (0xFF00FF00 - (1 << 32))  # as signed int32
-            w = ((w >> 8) & 0x00FF00FF) | high
-    return w
+        return scan_cuda.derive_words(raw, byte_shift, element_width, big)
 
 
 class ResidentCorpus:

@@ -82,6 +82,10 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
         ctypes.c_int64,
     ],
+    "mm_derive_words": [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ],
 }
 
 #: entry points that return a size, not an error

@@ -24,7 +24,11 @@ The wrappers of the kernels, hand-written in CUDA C++ for Hopper
   for the JAX package (no Pallas kernel there);
 - :func:`hot_combo` (kernel L, ``csrc/hot_combo.cu``) replaces the fused
   step's tail, ``scan_pallas._hot_slots_and_combo``: hot-tile choice, the
-  exact phase 2 read straight from the chunk, and the combo buffer.
+  exact phase 2 read straight from the chunk, and the combo buffer;
+- :func:`derive_words` (kernel M, ``csrc/derive_words.cu``) derives a
+  grid's packed words from the resident corpus's words: the jnp
+  derivation of the JAX package's ``corpus.grid_chunk`` (no Pallas
+  kernel there).
 
 Each wrapper checks its operands, allocates its output, and launches its
 kernel on the current stream for a CUDA tensor, or runs its plain PyTorch
@@ -104,6 +108,8 @@ __all__ = [
     "scan_chunk_plain",
     "hot_combo",
     "hot_combo_plain",
+    "derive_words",
+    "derive_words_plain",
 ]
 
 #: the fused tail's reads of packed words: kernel L's, straight from the
@@ -116,7 +122,8 @@ GATHER_MODES = ("fused", "block", "take")
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0,
                  "tile_counts_elems": 0, "gather_tiles_block": 0,
-                 "load_sum": 0, "scan_chunk": 0, "hot_combo": 0}
+                 "load_sum": 0, "scan_chunk": 0, "hot_combo": 0,
+                 "derive_words": 0}
 
 #: the gathers' launches with 16-byte aligned source, output and tile size
 aligned_launch_counts = {"gather_tiles": 0, "gather_tiles_block": 0}
@@ -619,6 +626,59 @@ def hot_combo_plain(
         recovery, tile_elems=tile_elems, length=length,
         signed_compare=signed_compare, k_cap=k_cap, p_cap=p_cap,
     )
+
+
+def derive_words(raw: torch.Tensor, byte_shift: int, element_width: int,
+                 big: bool) -> torch.Tensor:
+    """Kernel M: ``int32[n]`` grid words from ``raw``, the ``n + 1``
+    little-endian int32 words of a byte stream (the last one only borrowed
+    from): word ``i`` is ``raw[i]`` and ``raw[i + 1]`` shifted right
+    together by ``8 * byte_shift`` bits, then, when ``element_width`` is 2
+    and ``big``, byte-swapped within each 16-bit half.  One launch on the
+    current stream; under a profiler it counts ``corpus.derive_kernel``
+    and ``corpus.derive_bytes`` (``8 n``: every word read once and written
+    once)."""
+    _check(raw.dtype == torch.int32 and raw.dim() == 1
+           and raw.is_contiguous() and raw.numel() >= 1,
+           "raw must be a contiguous 1-D int32 tensor of at least 1 word")
+    _check(byte_shift in (0, 1, 2, 3),
+           f"byte_shift must be 0 to 3, got {byte_shift}")
+    _check(element_width in (1, 2),
+           f"element_width must be 1 or 2, got {element_width}")
+    if not _kernel_device(raw):
+        return derive_words_plain(raw, byte_shift, element_width, big)
+    from ._build import load_library
+
+    lib = load_library()
+    n = raw.numel() - 1
+    out = torch.empty(n, dtype=torch.int32, device=raw.device)
+    with torch.cuda.device(raw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mm_derive_words(raw.data_ptr(), n, byte_shift,
+                                 int(element_width == 2 and big),
+                                 out.data_ptr(), stream)
+    _raise_on(rc, "derive_words")
+    launch_counts["derive_words"] += 1
+    profiling.count("corpus.derive_kernel", 1)
+    profiling.count("corpus.derive_bytes", 8 * n)
+    return out
+
+
+def derive_words_plain(raw, byte_shift, element_width, big) -> torch.Tensor:
+    """Plain PyTorch version of :func:`derive_words` (a view of
+    ``raw[:-1]`` where there is no shift and no swap).  Torch's ``>>`` on
+    int32 is arithmetic, so every right shift is masked."""
+    swap = element_width == 2 and big
+    w = raw[:-1]
+    if byte_shift:
+        k = 8 * byte_shift
+        low = (w >> k) & ((1 << (32 - k)) - 1)
+        w = low | (raw[1:] << (32 - k))
+    if swap:
+        # byte swap within each 16-bit element
+        high = (w << 8) & (0xFF00FF00 - (1 << 32))  # as signed int32
+        w = ((w >> 8) & 0x00FF00FF) | high
+    return w
 
 
 _multi_memo: dict = {}

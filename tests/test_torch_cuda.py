@@ -1,5 +1,6 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions, on
-the card.
+the card (kernel M, the grid derivation, at every byte shift, width and
+byte order, on views off a 16-byte boundary and past 2^31 bytes too).
 
 These tests need a CUDA device and ``nvcc``; without a card they skip.  On
 the card, run ``python -m pytest tests/test_torch_cuda.py -m cuda -q``.
@@ -965,3 +966,103 @@ def test_resident_search_runs_the_tail_kernel(cuda, tmp_path, monkeypatch):
     assert scan_cuda.launch_counts["gather_tiles"] == 0
     assert not any(on_cuda)
     assert [r.offset for r in got] == [5, 1_048_570, 2_999_990]
+
+
+_DERIVE_KINDS = [(1, False), (2, False), (2, True)]  # (width, big)
+
+
+def _derive_both(raw, byte_shift, width, big):
+    """Kernel M and its plain version on the same CUDA words; the kernel's
+    launch counted once."""
+    before = scan_cuda.launch_counts["derive_words"]
+    got = scan_cuda.derive_words(raw, byte_shift, width, big)
+    torch.cuda.synchronize()
+    assert scan_cuda.launch_counts["derive_words"] == before + 1
+    return got, scan_cuda.derive_words_plain(raw, byte_shift, width, big)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097, 2**20 + 3])
+@pytest.mark.parametrize("width,big", _DERIVE_KINDS)
+@pytest.mark.parametrize("byte_shift", range(4))
+def test_derive_words_kernel_equals_plain(cuda, byte_shift, width, big, n):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n + byte_shift)
+    raw = torch.randint(-(2**31), 2**31, (n + 1,), dtype=torch.int32,
+                        device=cuda, generator=gen)
+    got, want = _derive_both(raw, byte_shift, width, big)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("width,big", _DERIVE_KINDS)
+@pytest.mark.parametrize("byte_shift", range(4))
+def test_derive_words_kernel_on_a_view(cuda, byte_shift, width, big,
+                                       offset):
+    """Kernel M on words *offset* words into a larger buffer, so that the
+    view does not start on a 16-byte boundary: the word path."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(offset)
+    base = torch.randint(-(2**31), 2**31, (2**20 + 16,), dtype=torch.int32,
+                         device=cuda, generator=gen)
+    raw = base[offset : offset + 2**20 + 4]
+    assert raw.data_ptr() % 16 != 0
+    got, want = _derive_both(raw, byte_shift, width, big)
+    assert torch.equal(got, want)
+
+
+def test_derive_words_kernel_past_2_31_bytes(cuda):
+    """Kernel M over 2^31 + 20 bytes of output: 64-bit indices."""
+    n = 2**29 + 5
+    raw = torch.empty(n + 1, dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(31)
+    raw.random_(-(2**31), 2**31, generator=gen)
+    got, want = _derive_both(raw, 3, 2, True)
+    assert torch.equal(got, want)
+    lo, hi = (int(x) & 0xFFFFFFFF for x in raw[-2:].cpu())
+    w = ((lo | hi << 32) >> 24) & 0xFFFFFFFF
+    w = ((w >> 8) & 0x00FF00FF) | ((w << 8) & 0xFF00FF00)
+    assert int(got[-1]) & 0xFFFFFFFF == w
+
+
+def test_resident_search_counts_the_derive_kernel(cuda, tmp_path):
+    """Resident engine searches on the card under a profiler: a 16-bit
+    big-endian search launches kernel M on every step (each of its grids
+    swaps) and counts it in the run's record; an 8-bit search derives
+    nothing, launches nothing and counts nothing."""
+    from monkey_moore_tpu_torch.engine import SearchEngine
+
+    rng = np.random.default_rng(12)
+    data = rng.integers(0, 256, 3_000_000).astype(np.uint8)
+    enc = (np.array([ord(c) for c in "dragon"]) + 300).astype(">u2")
+    plants = [6, 1_500_001, 2_999_000]  # both alignments
+    for pos in plants:
+        data[pos : pos + 12] = enc.view(np.uint8)
+    path = tmp_path / "be16.bin"
+    path.write_bytes(data.tobytes())
+    common = dict(file_path=path, keyword="dragon",
+                  device_chunk_bytes=1 << 20, host_latency_threshold_bytes=0)
+    for cfg, derives in (
+        (SearchConfig(element_width=2, endianness=Endianness.BIG, **common),
+         True),
+        (SearchConfig(**common), False),
+    ):
+        scan_cuda.reset_launch_counts()
+        engine = SearchEngine(cfg, device="cuda")
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = engine.run()
+        steps = engine.last_stats.fused_steps
+        counters = engine.last_stats.record.counters
+        assert steps >= 3
+        if derives:
+            assert scan_cuda.launch_counts["derive_words"] == steps
+            assert counters["corpus.derive_kernel"] == steps
+            assert counters["corpus.derive_bytes"] >= 8 * steps * (
+                (1 << 20) // 4)
+            assert [r.offset for r in got] == plants
+        else:
+            assert scan_cuda.launch_counts["derive_words"] == 0
+            assert "corpus.derive_kernel" not in counters
+            assert "corpus.derive_bytes" not in counters

@@ -11,7 +11,10 @@ Tolerance: exact equality throughout — spans are compared by name and
 nesting, results by value.
 """
 
+import sys
 import threading
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -211,3 +214,57 @@ def test_a_thread_without_the_profiler_records_nothing(tmp_path):
     _assert_tree(record)
     assert sum(s.name == "mm.search" for s in record.spans) == 1
     assert record.request_id != other.last_stats.record.request_id
+
+
+def _derive_roofline():
+    """The benchmark's reader of ``kernel.derive_roofline`` and its
+    ``stats`` module, imported from the repository's root as
+    ``benchmark/run.py`` does."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import spec, stats
+
+    return spec.reader("kernel.derive_roofline"), stats
+
+
+def _bench_run(records, device_s):
+    from benchmark.stats import TraceSummary
+
+    done = [SimpleNamespace(stats=SimpleNamespace(record=r))
+            for r in records]
+    trace = None if device_s is None else TraceSummary(
+        window_s=1.0, busy_s=0.5, device_s=device_s)
+    return SimpleNamespace(done=done, trace=trace)
+
+
+_M = "(anonymous namespace)::derive_words_kernel<true>(unsigned int const*)"
+
+
+@pytest.mark.parametrize("counted,device_s", [
+    (False, {_M: 4e-3, "other": 1.0}),  # the CPU's plain version counts 0
+    (True, {"other": 1.0}),  # a program without kernel M
+    (True, None),  # an untraced run
+])
+def test_derive_roofline_finds_nothing_without_kernel_and_bytes(
+        tmp_path, counted, device_s):
+    read, _ = _derive_roofline()
+    path, size = _file(tmp_path, 2)
+    engine = SearchEngine(_config(path, size, 2), device="cpu")
+    _, record, _ = _traced(engine)
+    assert "mm.corpus.derive" in {s.name for s in record.spans}
+    assert "corpus.derive_bytes" not in record.counters
+    if counted:
+        record.counters["corpus.derive_bytes"] = 8 * 2**20
+    assert read(_bench_run([record], device_s)) is None
+
+
+def test_derive_roofline_is_the_counted_bytes_bound_over_kernel_time():
+    read, stats = _derive_roofline()
+    record = profiling.SpanRecord(1)
+    record.spans.append(profiling.Span("mm.search", 0, -1, 1))
+    record.counters["corpus.derive_bytes"] = 5_000_000_000
+    run = _bench_run([record, record], {_M: 4e-3, "other": 1.0})
+    want = 100 * stats.bound_s(10_000_000_000, 0)[0] / 4e-3
+    assert read(run) == pytest.approx(want)
+    assert 0 < want < 100
