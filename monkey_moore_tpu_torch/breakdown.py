@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .pattern import compile_pattern
+from .scan_plan import decode_grid
 
 SEED = 20261016
 FILE_BYTES = 1 << 30
@@ -164,7 +165,8 @@ def streaming(path: Path, reps: int) -> dict:
         data = np.memmap(path, dtype=np.uint8, mode="r")
         s = engine.config.element_width
         row["decode_one_chunk"] = _timed(
-            lambda: engine._decode_grid(data, 0, 0, CHUNK // s + 5), reps
+            lambda: decode_grid(data, s, engine.config.endianness, 0, 0,
+                                CHUNK // s + 5), reps
         )["median"]
         out[name] = row
     return out

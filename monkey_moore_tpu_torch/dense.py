@@ -233,20 +233,13 @@ def fused_count_extract_start(
     grid_offset: int = 0,
     k_cap: int | None = None,
     p_cap: int = 1024,
-    *,
-    gather: str = "fused",
 ) -> FusedPending:
     """Enqueue phases 1 + 2 of one step WITHOUT fetching the result, so the
     caller can enqueue the next chunk first.  ``arr_device``: the chunk's
     ``(T+1) * tile_elems`` elements, as packed words (kernels A and L) or
-    u8/u16 elements (kernels D and L).  ``gather``: the tail's read of
-    packed words, one of ``scan_cuda.GATHER_MODES`` (kernel L by default;
-    only ``perf_probe``'s ``ab`` stage sets it)."""
+    u8/u16 elements (kernels D and L)."""
     _own(pat, "fused_count_extract_start")
     has_pairs, auto_cap = _step_plan(pat, valid_count, tile_elems)
-    if gather != "fused" and not (has_pairs and _packed(pat, arr_device)):
-        raise ValueError("only a packed step with a check takes another "
-                         "tail than kernel L")
     if k_cap is None:
         k_cap = auto_cap
     if not has_pairs:
@@ -269,8 +262,7 @@ def fused_count_extract_start(
         )
     if _packed(pat, arr_device):
         counts_dev, combo_dev = tile_counts_gather(
-            pat, arr_device, valid_count, tile_elems, k_cap, p_cap,
-            gather=gather,
+            pat, arr_device, valid_count, tile_elems, k_cap, p_cap
         )
     else:
         _check_elements(pat, arr_device)
@@ -336,16 +328,13 @@ def fused_count_extract(
     grid_offset: int = 0,
     k_cap: int | None = None,
     p_cap: int = 1024,
-    *,
-    gather: str = "fused",
 ) -> Tuple[np.ndarray, np.ndarray, FusedInfo]:
     """Phases 1 + 2 for one device-resident chunk: ``(offsets, values,
-    info)``, offsets ascending, values the two recovery values per match.
-    ``gather``: as :func:`fused_count_extract_start`."""
+    info)``, offsets ascending, values the two recovery values per match."""
     return fused_count_extract_finish(
         fused_count_extract_start(
             pat, arr_device, valid_count, tile_elems=tile_elems,
-            grid_offset=grid_offset, k_cap=k_cap, p_cap=p_cap, gather=gather,
+            grid_offset=grid_offset, k_cap=k_cap, p_cap=p_cap,
         )
     )
 

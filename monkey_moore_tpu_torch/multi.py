@@ -22,11 +22,14 @@ batch scans a corpus resident across that mesh (``_search_mesh``): kernel
 C on every shard when the batch is eligible, otherwise each keyword
 through the engine's resident mesh route.
 
-Block grouping, suppression and the block-fit filter are applied per
-keyword by the port's copy of ``engine.finalize_candidates``; REFERENCE
-semantics run the port's engine once per keyword.  The JAX module's
-host-side methods ``_config``, ``_finalize_all`` and ``_decode_grid`` are
-copied here under their names (``tests/test_torch_multi.py`` holds them
+The chunk geometry (``scan_plan.chunk_plan``), the (block, alignment)
+grouping (``scan_plan.CandidateRecorder``) and the sorted results with
+their previews (``engine.search_results``) are the engine's; block
+grouping, suppression and the block-fit filter are applied per keyword by
+the port's copy of ``engine.finalize_candidates``; REFERENCE semantics
+run the port's engine once per keyword.  The JAX module's ``_config`` is
+copied here under its name, and its ``_decode_grid`` is
+``scan_plan.decode_grid`` (``tests/test_torch_multi.py`` holds both
 equal).  ``endianness`` and ``semantics`` must be the port's enums: a
 JAX-package member raises ``TypeError``.
 """
@@ -53,14 +56,25 @@ from .dense import (
     fused_count_extract_multi,
     fused_multi_eligible,
 )
-from .engine import SearchEngine, finalize_candidates, resolve_device
+from .engine import (
+    SearchEngine,
+    finalize_candidates,
+    resolve_device,
+    search_results,
+)
 from .ops.host import canonical_check_tables, extract_hot_tiles
 from .ops.scan_host import decode_grid_host
 from .ops.scan_torch import tile_counts_multi
 from .parallel.mesh import make_mesh
 from .parallel.resident import get_sharded_corpus
 from .parallel.sharded import sharded_fused_multi_step
-from .preview import decode_elements, generate_preview
+from .profiling import StageTimer
+from .scan_plan import (
+    CandidateRecorder,
+    chunk_plan,
+    grid_elems,
+    mesh_tile_elems,
+)
 
 __all__ = ["MultiSearcher"]
 
@@ -138,22 +152,17 @@ class MultiSearcher:
                 self._engine(s).run(generate_previews=generate_previews)
                 for s in specs
             ]
-        if self.mesh is not None:
-            return self._search_mesh(specs, generate_previews)
-
         pats = [self._engine(s).compile() for s in specs]
         if not self.file_path.exists():
             raise FileNotFoundError("File not found")
         file_size = self.file_path.stat().st_size
+        if self.mesh is not None:
+            return self._search_mesh(specs, pats, file_size,
+                                     generate_previews)
         s = self.element_width
-        l_max = max(p.length for p in pats)
-
-        size_bucket = 1 << (max(file_size, 1) - 1).bit_length()
-        desired = max(l_max, min(self.chunk_bytes, size_bucket) // s)
-        tile_elems = min(TILE_ELEMS, 1 << (desired - 1).bit_length())
-        tiles_per_chunk = max(1, desired // tile_elems)
-        chunk_elems = tiles_per_chunk * tile_elems
-        want = (tiles_per_chunk + 1) * tile_elems
+        plan = chunk_plan(file_size, s, max(p.length for p in pats),
+                          self.chunk_bytes)
+        l_min = min(p.length for p in pats)
 
         data = (
             np.memmap(self.file_path, dtype=np.uint8, mode="r")
@@ -164,72 +173,44 @@ class MultiSearcher:
             self.file_path,
             file_size,
             self.resident_bytes_limit,
-            pad_bytes=want * s + s,
+            pad_bytes=plan.want * s + s,
             device=self.device,
         )
 
         # the fused route: one kernel C pass per grid counts every keyword;
         # chosen from the batch and the tile size before any launch
         use_fused = resident is not None and fused_multi_eligible(
-            pats, tile_elems
+            pats, plan.tile_elems
         )
         pair_sets, exp_list, active_list = canonical_check_tables(pats)
         lengths = [p.length for p in pats]
+        recorders = [CandidateRecorder(s, self.block_size) for _ in pats]
 
-        per_group = [dict() for _ in pats]
-        candidate_info = [dict() for _ in pats]
-
-        def grid_count(a):
-            return max(0, (file_size - a) // s)
-
-        n_max = max((grid_count(a) for a in range(s)), default=0)
-        n_chunks = max(1, -(-n_max // chunk_elems))
-
-        for k in range(n_chunks):
-            e0 = k * chunk_elems
-            for a in range(s):
-                n_a = grid_count(a)
-                if e0 >= n_a:
-                    continue
-                count_here = min(chunk_elems + l_max - 1, n_a - e0)
-                if count_here < min(p.length for p in pats):
-                    continue
+        for k in range(plan.n_chunks):
+            for a, e0, count_here in plan.steps(k, l_min):
                 if resident is not None:
                     dev_arr = resident.grid_chunk(
-                        s, self.endianness, a, e0, want, packed=use_fused
+                        s, self.endianness, a, e0, plan.want,
+                        packed=use_fused,
                     )
                     arr_host = None
                 else:
-                    arr_host = self._decode_grid(data, a, e0, count_here)
-                    if len(arr_host) < want:
-                        arr_host = np.pad(
-                            arr_host, (0, want - len(arr_host))
-                        )
+                    arr_host = plan.host_chunk(data, self.endianness, a, e0,
+                                               count_here)
                     dev_arr = torch.from_numpy(arr_host).to(self.device)
-
-                def emit(pi, offs, vals):
-                    keep = offs < chunk_elems
-                    offs, vals = offs[keep], vals[keep]
-                    for off, val in zip(offs.tolist(), vals.tolist()):
-                        e_global = e0 + off
-                        byte_off = a + e_global * s
-                        block_id = byte_off // self.block_size
-                        per_group[pi].setdefault(
-                            (block_id, a), []
-                        ).append(e_global)
-                        candidate_info[pi][(a, e_global)] = (byte_off, val)
 
                 if use_fused:
                     fused = fused_count_extract_multi(
-                        pats, dev_arr, count_here, tile_elems=tile_elems
+                        pats, dev_arr, count_here,
+                        tile_elems=plan.tile_elems,
                     )
-                    for pi, (offs, vals, _info) in enumerate(fused):
-                        emit(pi, offs, vals)
+                    for rec, (offs, vals, _info) in zip(recorders, fused):
+                        rec.add(a, e0, offs, vals, below=plan.chunk_elems)
                     continue
 
                 counts_all = tile_counts_multi(
                     dev_arr, count_here, exp_list, active_list, lengths,
-                    pair_sets=pair_sets, tile_elems=tile_elems,
+                    pair_sets=pair_sets, tile_elems=plan.tile_elems,
                 )
                 counts_np = torch.stack(counts_all).cpu().numpy()
                 for pi, counts in enumerate(counts_np):
@@ -238,22 +219,23 @@ class MultiSearcher:
                     if resident is not None:
                         offs, vals = extract_hot_tiles_device(
                             pats[pi], dev_arr, counts, count_here,
-                            tile_elems,
+                            plan.tile_elems,
                         )
                     else:
                         offs, vals = extract_hot_tiles(
                             pats[pi], arr_host[:count_here], counts,
-                            tile_elems,
+                            plan.tile_elems,
                         )
-                    emit(pi, offs, vals)
+                    recorders[pi].add(a, e0, offs, vals,
+                                      below=plan.chunk_elems)
 
         return self._finalize_all(
-            specs, pats, per_group, candidate_info, data, file_size,
-            generate_previews,
+            specs, pats, recorders, data, file_size, generate_previews,
         )
 
     def _search_mesh(
-        self, specs: Sequence[Spec], generate_previews: bool
+        self, specs: Sequence[Spec], pats, file_size: int,
+        generate_previews: bool,
     ) -> List[List[SearchResult]]:
         """Keyword batch across the mesh.
 
@@ -261,7 +243,7 @@ class MultiSearcher:
         resident.py``); where the batch is eligible
         (``dense.fused_multi_eligible``) the WHOLE batch costs one mesh step
         per alignment grid (``parallel.sharded.sharded_fused_multi_step``:
-        kernel C, then B, on every shard).  Otherwise each keyword runs the
+        kernel C, then L, on every shard).  Otherwise each keyword runs the
         engine's resident mesh route.  A failure raises.
         """
 
@@ -277,27 +259,13 @@ class MultiSearcher:
                 )
             return out
 
-        pats = [self._engine(sp).compile() for sp in specs]
-        if not self.file_path.exists():
-            raise FileNotFoundError("File not found")
-        file_size = self.file_path.stat().st_size
         s = self.element_width
-        per_dev = -(-max(1, file_size) // len(self.mesh))
         l_max = max(p.length for p in pats)
         if l_max > TILE_ELEMS:
             return per_keyword()
-        # the tile must cover the longest window (the engine's resident
-        # mesh tile rule): shard and tile halos are exactly one tile
-        tile_m = min(
-            TILE_ELEMS,
-            max(
-                64,
-                1 << (per_dev - 1).bit_length(),
-                1 << (l_max - 1).bit_length(),
-            ),
-        )
         corpus = get_sharded_corpus(
-            self.file_path, file_size, self.mesh, tile_m,
+            self.file_path, file_size, self.mesh,
+            mesh_tile_elems(file_size, len(self.mesh), l_max),
             self.resident_bytes_limit,
         )
         if corpus is None or not fused_multi_eligible(
@@ -307,10 +275,9 @@ class MultiSearcher:
 
         data = np.memmap(self.file_path, dtype=np.uint8, mode="r")
         l_min = min(p.length for p in pats)
-        per_group = [dict() for _ in pats]
-        candidate_info = [dict() for _ in pats]
+        recorders = [CandidateRecorder(s, self.block_size) for _ in pats]
         for a in range(s):
-            valid_count = max(0, (file_size - a) // s)
+            valid_count = grid_elems(file_size, s, a)
             if valid_count < l_min:
                 continue
             res = sharded_fused_multi_step(
@@ -327,49 +294,24 @@ class MultiSearcher:
                     offs, vals = extract_hot_tiles(
                         pats[pi], arr, over, corpus.tile_elems
                     )
-                for off, val in zip(offs.tolist(), vals.tolist()):
-                    byte_off = a + off * s
-                    block_id = byte_off // self.block_size
-                    per_group[pi].setdefault((block_id, a), []).append(off)
-                    candidate_info[pi][(a, off)] = (byte_off, val)
+                recorders[pi].add(a, 0, offs, vals)
         return self._finalize_all(
-            specs, pats, per_group, candidate_info, data, file_size,
-            generate_previews,
+            specs, pats, recorders, data, file_size, generate_previews,
         )
 
     def _finalize_all(
-        self, specs, pats, per_group, candidate_info, data, file_size,
-        generate_previews,
+        self, specs, pats, recorders, data, file_size, generate_previews,
     ) -> List[List[SearchResult]]:
-        """Per-pattern finalize + sort + optional previews."""
-        s = self.element_width
+        """Per-pattern finalize, then the engine's sorted results and
+        previews."""
         out: List[List[SearchResult]] = []
-        for pi, pat in enumerate(pats):
+        for spec, pat, rec in zip(specs, pats, recorders):
             raw = finalize_candidates(
-                pat, self.semantics, s, self.block_size, file_size,
-                per_group[pi], candidate_info[pi],
+                pat, self.semantics, self.element_width, self.block_size,
+                file_size, rec.per_group, rec.candidate_info,
             )
-            raw.sort(key=lambda r: r[0])
-            results = [SearchResult(offset=o, values_map=m) for o, m in raw]
-            if generate_previews and results:
-                cfg = self._config(specs[pi])
-                is_ascii = len(pat.char_seq) == 0
-                kw_len = len(
-                    cfg.keyword if isinstance(cfg.keyword, (list, tuple))
-                    else str(cfg.keyword)
-                )
-                for r in results:
-                    r.preview = generate_preview(
-                        data, file_size, r.offset, r.values_map, kw_len,
-                        self.preview_width, s, self.endianness,
-                        cfg.is_relative_search, is_ascii,
-                    )
-            out.append(results)
+            out.append(search_results(
+                raw, pat, self._config(spec), data, file_size, self.device,
+                generate_previews, StageTimer(),
+            ))
         return out
-
-    # ------------------------------------------------------------------
-    def _decode_grid(self, data, align, e_start, e_count):
-        s = self.element_width
-        b0 = align + e_start * s
-        raw = data[b0 : b0 + e_count * s]
-        return decode_elements(raw.tobytes(), s, self.endianness)

@@ -44,10 +44,7 @@ counts, then kernel L's hot-tile selection, exact phase 2 and combo buffer,
 all enqueued with no host sync.  :func:`tile_counts_gather_elems` is its
 element-array twin (``_native_counts_gather_call``: kernels D and L), and
 :func:`tile_counts_multi_gather` the keyword-batch twin
-(``_swar_multi_gather_call``: kernel C, then L per keyword).  Only
-``perf_probe``'s ``ab`` stage asks :func:`tile_counts_gather` for another
-tail of the packed words (``gather=``, one of :data:`GATHER_MODES`), as
-the JAX probe sets ``_PALLAS_PROBE["gather_mode"]``.
+(``_swar_multi_gather_call``: kernel C, then L per keyword).
 """
 
 from __future__ import annotations
@@ -70,14 +67,12 @@ from . import scan_torch
 from .scan_torch import (
     as_elements,
     count_body,
-    nonzero_capped,
     operand_cache,
     pattern_device_args,
     widen,
 )
 
 __all__ = [
-    "GATHER_MODES",
     "launch_counts",
     "aligned_launch_counts",
     "reset_launch_counts",
@@ -111,13 +106,6 @@ __all__ = [
     "derive_words",
     "derive_words_plain",
 ]
-
-#: the fused tail's reads of packed words: kernel L's, straight from the
-#: chunk (the default, which took the place of kernel B's gather), and, for
-#: ``perf_probe``'s ``ab`` stage only, kernel E's entry on the same bytes
-#: and ``index_select`` of the overlapping tile view (the counterpart of the
-#: JAX step's XLA take), each followed by the plain tail
-GATHER_MODES = ("fused", "block", "take")
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 launch_counts = {"tile_counts": 0, "gather_tiles": 0, "tile_counts_multi": 0,
@@ -410,8 +398,6 @@ def tile_counts_gather(
     tile_elems: int,
     k_cap: int,
     p_cap: int,
-    *,
-    gather: str = "fused",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused phases 1 + 2 for one grid chunk, enqueued on the current
     stream with no host sync.
@@ -421,21 +407,14 @@ def tile_counts_gather(
     counts, then kernel L picks the first ``k_cap`` hot tiles, re-checks
     every window of each with the full check tables, reading the tile and
     its halo straight from ``words``, and packs header, hot ids and counts,
-    candidate offsets and recovery values (layout ``host.COMBO_HEADER``).
-    *gather* other than ``"fused"`` (:data:`GATHER_MODES`) takes the plain
-    tail after that gather instead (``perf_probe``'s ``ab`` stage)."""
+    candidate offsets and recovery values (layout ``host.COMBO_HEADER``)."""
     counts = tile_counts(
         words, prefilter_operand(pat, words.device),
         width=np.dtype(pat.dtype).itemsize, tile_elems=tile_elems,
         length=pat.length, valid_count=valid_count,
     )
-    if gather == "fused":
-        tail = _fused_tail(pat, words, counts, valid_count, tile_elems,
-                           k_cap, p_cap)
-    else:
-        tail = _gathered_tail(pat, words, counts, valid_count, tile_elems,
-                              k_cap, p_cap, gather=gather)
-    return counts, tail
+    return counts, _fused_tail(pat, words, counts, valid_count, tile_elems,
+                               k_cap, p_cap)
 
 
 def tile_counts_gather_elems(
@@ -503,36 +482,6 @@ def _fused_tail(pat, data, counts, valid_count, tile_elems, k_cap,
         data, counts, valid_count, cur, prev, exp, rec,
         tile_elems=tile_elems, length=pat.length,
         signed_compare=pat.signed_compare, k_cap=k_cap, p_cap=p_cap,
-    )
-
-
-def _gathered_tail(pat, words, counts, valid_count, tile_elems, k_cap,
-                   p_cap, *, gather: str) -> torch.Tensor:
-    """The plain tail after another gather of packed words
-    (``_hot_slots_and_combo`` with ``gather_kernel`` "block" or falsy):
-    the first ``k_cap`` hot tiles gathered with their halo tiles by kernel
-    E's entry on the same bytes (``"block"``) or ``index_select`` of the
-    overlapping tile view (``"take"``), then ``scan_torch.slots_combo``.
-    Only ``perf_probe``'s ``ab`` stage, a diagnostic, runs it; every search
-    takes kernel L."""
-    _check(gather in GATHER_MODES[1:],
-           f"gather must be one of {GATHER_MODES}")
-    width = np.dtype(pat.dtype).itemsize
-    hot = nonzero_capped(counts, k_cap)
-    if gather == "block":
-        slots = gather_tiles_block(as_elements(words, width), hot,
-                                   tile_elems=tile_elems)
-    else:  # "take": tile t and its halo tile are row t of the view
-        tile_bytes = tile_elems * width
-        view = words.view(torch.uint8).unfold(0, 2 * tile_bytes, tile_bytes)
-        slots = as_elements(torch.index_select(view, 0, hot), width)
-    _, _, exp_exact, recovery = pattern_device_args(pat, words.device)
-    return scan_torch.slots_combo(
-        slots[:, : tile_elems + pat.length - 1], counts, hot, valid_count,
-        tuple((int(c), int(p))
-              for c, p in zip(pat.chk_shift_cur, pat.chk_shift_prev)),
-        exp_exact, recovery, tile_elems=tile_elems, length=pat.length,
-        signed_compare=pat.signed_compare, p_cap=p_cap,
     )
 
 

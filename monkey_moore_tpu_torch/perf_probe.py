@@ -54,21 +54,32 @@ import torch
 
 from .bench import make_corpus, sol_times, tile_view
 from .dense import (
+    FusedPending,
     extract_hot_tiles_device,
     fused_count_extract,
+    fused_count_extract_finish,
     fused_count_extract_start,
     resolve_device,
     tile_counts,
 )
-from .ops.host import LANES
-from .ops.scan_cuda import GATHER_MODES, launch_counts, reset_launch_counts
+from .ops import scan_cuda, scan_torch
+from .ops.host import LANES, _prefilter_sel, auto_k_cap
+from .ops.scan_cuda import launch_counts, reset_launch_counts
 from .pattern import compile_pattern
 
-__all__ = ["STAGES", "emit", "gather_combos", "main"]
+__all__ = ["GATHER_MODES", "STAGES", "emit", "gather_combos", "gather_step",
+           "main"]
 
 STAGES = ("floor", "roofline", "kernel", "variants", "e2e", "fused", "sol",
           "ab")
 SEED = 0  # the corpus's generator seed
+
+#: the ``ab`` stage's tails of a fused step on packed words: kernel L's,
+#: straight from the chunk (``fused``, every search's), and kernel E's
+#: entry on the same bytes (``block``) or ``index_select`` of the
+#: overlapping tile view (``take``, the counterpart of the JAX step's XLA
+#: take), each followed by the plain tail
+GATHER_MODES = ("fused", "block", "take")
 
 
 def emit(name, seconds, nbytes=None, **extra):
@@ -93,13 +104,65 @@ def make_timeit(iters):
     return timeit
 
 
+def _gathered_tail(pat, words, counts, valid_count, tile_elems, k_cap,
+                   p_cap, *, gather: str) -> torch.Tensor:
+    """The plain tail after another gather of packed words
+    (``_hot_slots_and_combo`` with ``gather_kernel`` "block" or falsy):
+    the first ``k_cap`` hot tiles gathered with their halo tiles by kernel
+    E's entry on the same bytes (``"block"``) or ``index_select`` of the
+    overlapping tile view (``"take"``), then ``scan_torch.slots_combo``."""
+    width = np.dtype(pat.dtype).itemsize
+    hot = scan_torch.nonzero_capped(counts, k_cap)
+    if gather == "block":
+        slots = scan_cuda.gather_tiles_block(
+            scan_torch.as_elements(words, width), hot, tile_elems=tile_elems)
+    else:  # "take": tile t and its halo tile are row t of the view
+        tile_bytes = tile_elems * width
+        view = words.view(torch.uint8).unfold(0, 2 * tile_bytes, tile_bytes)
+        slots = scan_torch.as_elements(torch.index_select(view, 0, hot),
+                                       width)
+    _, _, exp_exact, recovery = scan_torch.pattern_device_args(
+        pat, words.device)
+    return scan_torch.slots_combo(
+        slots[:, : tile_elems + pat.length - 1], counts, hot, valid_count,
+        tuple((int(c), int(p))
+              for c, p in zip(pat.chk_shift_cur, pat.chk_shift_prev)),
+        exp_exact, recovery, tile_elems=tile_elems, length=pat.length,
+        signed_compare=pat.signed_compare, p_cap=p_cap,
+    )
+
+
+def gather_step(pat, words, n: int, tile_elems: int,
+                gather: str) -> FusedPending:
+    """One fused step in flight with the tail *gather* of
+    :data:`GATHER_MODES`: the search's step for ``fused``; otherwise
+    kernel A's counts, then :func:`_gathered_tail`.  Only a packed step
+    with a check takes another tail than kernel L."""
+    if gather == "fused":
+        return fused_count_extract_start(pat, words, n, tile_elems=tile_elems)
+    if gather not in GATHER_MODES:
+        raise ValueError(f"gather must be one of {GATHER_MODES}")
+    pairs, _, _ = _prefilter_sel(pat)
+    if not pairs or words.dtype != torch.int32:
+        raise ValueError("only a packed step with a check takes another "
+                         "tail than kernel L")
+    k_cap, p_cap = auto_k_cap(pat, n, tile_elems, len(pairs)), 1024
+    counts = scan_cuda.tile_counts(
+        words, scan_cuda.prefilter_operand(pat, words.device),
+        width=np.dtype(pat.dtype).itemsize, tile_elems=tile_elems,
+        length=pat.length, valid_count=n,
+    )
+    tail = _gathered_tail(pat, words, counts, n, tile_elems, k_cap, p_cap,
+                          gather=gather)
+    return FusedPending(counts, tail, pat, words, n, tile_elems, 0, k_cap,
+                        p_cap)
+
+
 def gather_combos(pat, data, n: int, tile_elems: int) -> dict:
     """The fused step's combo buffer (host int32 array) with each tail of
-    :data:`GATHER_MODES` on the same words: kernel L for ``fused``; the
-    ``block`` and ``take`` gathers keep the plain tail, as this diagnostic
-    compares them."""
-    return {gm: fused_count_extract_start(pat, data, n, tile_elems=tile_elems,
-                                          gather=gm).combo_dev.cpu().numpy()
+    :data:`GATHER_MODES` on the same words (:func:`gather_step`)."""
+    return {gm: gather_step(pat, data, n, tile_elems,
+                            gm).combo_dev.cpu().numpy()
             for gm in GATHER_MODES}
 
 
@@ -268,8 +331,8 @@ def main(argv=None) -> int:
             return 1
         for gm in GATHER_MODES:
             def gstep(gm=gm):
-                return fused_count_extract(pw, data, n, tile_elems=te,
-                                           gather=gm)[2]
+                return fused_count_extract_finish(
+                    gather_step(pw, data, n, te, gm))[2]
 
             info = gstep()
             emit(f"ab_gather_{gm}_fused_wildcard", timeit(gstep), n,

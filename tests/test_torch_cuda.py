@@ -767,6 +767,7 @@ def test_gather_modes_give_equal_combos(cuda, width):
     from monkey_moore_tpu_torch import bench, perf_probe
     from monkey_moore_tpu_torch.dense import fused_count_extract_start
     from monkey_moore_tpu_torch.ops.host import LANES
+    from monkey_moore_tpu_torch.perf_probe import GATHER_MODES
 
     te = 8 * LANES
     n_bytes = 64 * te * width
@@ -786,6 +787,7 @@ def test_gather_modes_give_equal_combos(cuda, width):
         assert (want[0] > pending.k_cap) == (plants == 60)
         scan_cuda.reset_launch_counts()
         combos = perf_probe.gather_combos(pat, data.to(cuda), n, te)
+        assert list(combos) == list(GATHER_MODES)
         assert scan_cuda.launch_counts["hot_combo"] == 1
         assert scan_cuda.launch_counts["gather_tiles"] == 0
         assert scan_cuda.launch_counts["gather_tiles_block"] == 1

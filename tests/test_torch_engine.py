@@ -32,6 +32,12 @@ from monkey_moore_tpu.engine import SearchEngine as JaxEngine
 from monkey_moore_tpu_torch import carry_over
 from monkey_moore_tpu_torch import config as tconfig
 from monkey_moore_tpu_torch.engine import SearchEngine
+from monkey_moore_tpu_torch.ops.host import TILE_ELEMS
+from monkey_moore_tpu_torch.scan_plan import (
+    CandidateRecorder,
+    chunk_plan,
+    mesh_tile_elems,
+)
 from test_engine import (
     FILE_DATA_8,
     FILE_DATA_16,
@@ -223,6 +229,149 @@ def test_abort_mid_pipeline(tmp_path):
     )
     engine = SearchEngine(cfg, device="cpu")
     assert engine.run(on_progress=saboteur, abort_flag=flag) == []
+
+
+def _old_chunk_geometry(file_size, s, L, chunk_bytes):
+    """The engine's chunk arithmetic and step rules as they were written
+    inline before ``scan_plan``: (tile_elems, chunk_elems, want, n_chunks)
+    and a function of chunk k giving its (a, e0, count_here) steps."""
+    size_bucket = 1 << (max(file_size, 1) - 1).bit_length()
+    desired = max(L, min(chunk_bytes, size_bucket) // s)
+    tile_elems = min(TILE_ELEMS, 1 << (desired - 1).bit_length())
+    tiles_per_chunk = max(1, desired // tile_elems)
+    chunk_elems = tiles_per_chunk * tile_elems
+    want = (tiles_per_chunk + 1) * tile_elems
+
+    def grid(a):
+        return max(0, (file_size - a) // s)
+
+    n_chunks = max(1, -(-max((grid(a) for a in range(s)), default=0)
+                        // chunk_elems))
+
+    def steps(k):
+        out = []
+        e0 = k * chunk_elems
+        for a in range(s):
+            n_a = grid(a)
+            if e0 >= n_a:
+                continue
+            count_here = min(chunk_elems + L - 1, n_a - e0)
+            if count_here < L:
+                continue
+            out.append((a, e0, count_here))
+        return out
+
+    return (tile_elems, chunk_elems, want, n_chunks), steps
+
+
+def _old_mesh_tile(file_size, n_dev, L):
+    per_dev = -(-max(1, file_size) // n_dev)
+    return min(TILE_ELEMS, max(64, 1 << (per_dev - 1).bit_length(),
+                               1 << (L - 1).bit_length()))
+
+
+DVD5_BYTES = 4_700_372_992
+
+
+@pytest.mark.parametrize("chunk_bytes", [16_384, 1 << 20, 512 << 20])
+@pytest.mark.parametrize("length", [1, 5, TILE_ELEMS])
+@pytest.mark.parametrize("width", [1, 2])
+def test_chunk_plan_equals_the_old_arithmetic(width, length, chunk_bytes):
+    """``scan_plan.chunk_plan``, ``ChunkPlan.steps`` and
+    ``mesh_tile_elems`` against the arithmetic the engine and the batch
+    searcher wrote inline, from an empty file to a DVD-5 image (the steps of
+    the first 40 and the last 3 chunks of each)."""
+    tile = TILE_ELEMS * width
+    sizes = (0, 1, length - 1, tile - 1, tile, tile + 1, 2**31 - 3,
+             2**31 + 3, DVD5_BYTES)
+    for file_size in sorted({max(0, n) for n in sizes}):
+        want, old_steps = _old_chunk_geometry(file_size, width, length,
+                                              chunk_bytes)
+        plan = chunk_plan(file_size, width, length, chunk_bytes)
+        assert (plan.tile_elems, plan.chunk_elems, plan.want,
+                plan.n_chunks) == want, file_size
+        n = plan.n_chunks
+        for k in sorted(set(range(min(n, 40))) | {n - 3, n - 2, n - 1}):
+            if k >= 0:
+                assert list(plan.steps(k, length)) == old_steps(k), (
+                    file_size, k)
+        for n_dev in (1, 2, 3, 4, 8):
+            assert mesh_tile_elems(file_size, n_dev, length) == (
+                _old_mesh_tile(file_size, n_dev, length)), (file_size, n_dev)
+
+
+def _old_record(per_group, info, s, base, a, e0, offs, vals, span_elems,
+                own_bytes):
+    """The engine's per-step candidate recording as it was written inline
+    (``record_step``)."""
+    keep = offs < span_elems
+    offs, vals = offs[keep], vals[keep]
+    kept = 0
+    for off, val in zip(offs.tolist(), vals.tolist()):
+        e_global = e0 + off
+        byte_off = a + e_global * s
+        if own_bytes is not None and not (
+                own_bytes[0] <= byte_off < own_bytes[1]):
+            continue
+        kept += 1
+        per_group.setdefault((byte_off // base, a), []).append(e_global)
+        info[(a, e_global)] = (byte_off, val)
+    return kept
+
+
+def _old_gathered(gather, info_in, s, base):
+    """The engine's ``_gathered_groups`` as it was, without the stage."""
+    items = sorted(info_in.items())
+    offs = np.array([v[0] for _, v in items], dtype=np.int64)
+    vals = np.array([list(v[1]) for _, v in items],
+                    dtype=np.int64).reshape(-1, 2)
+    offs, vals = gather(offs, vals)
+    per_group, info = {}, {}
+    for byte_off, val in zip(offs.tolist(), vals.tolist()):
+        a = byte_off % s
+        e_global = (byte_off - a) // s
+        per_group.setdefault((byte_off // base, a), []).append(e_global)
+        info[(a, e_global)] = (byte_off, val)
+    return per_group, info
+
+
+@pytest.mark.parametrize("own", [None, (3_000, 41_000)],
+                         ids=["all", "own-bytes"])
+@pytest.mark.parametrize("s", [1, 2])
+def test_candidate_recorder_equals_the_old_grouping(s, own):
+    """``scan_plan.CandidateRecorder`` against the inline grouping of the
+    engine's steps (spans of 4,096 starts with a halo past them), with and
+    without a multi-host byte range, and after a gathered rebuild with a
+    second process's candidates."""
+    from monkey_moore_tpu_torch.profiling import StageTimer
+
+    rng = np.random.default_rng(23 + s)
+    base, span_elems = 1_000, 4_096
+    rec = CandidateRecorder(s, base, own)
+    per_group, info = {}, {}
+    for e0 in range(0, 24_000, span_elems):
+        for a in range(s):
+            offs = np.unique(rng.integers(0, span_elems + 9, 60))
+            vals = rng.integers(0, 256, (len(offs), 2))
+            want = _old_record(per_group, info, s, base, a, e0, offs, vals,
+                               span_elems, own)
+            assert rec.add(a, e0, offs, vals, below=span_elems) == want
+    assert rec.per_group == per_group and rec.candidate_info == info
+    assert info
+    if own is not None:
+        assert all(own[0] <= b < own[1] for b, _ in info.values())
+
+    other = np.unique(rng.integers(0, 48_000, 50))
+    other_vals = rng.integers(0, 256, (len(other), 2))
+
+    def gather(offs, vals):
+        return (np.concatenate([offs, other]),
+                np.concatenate([vals, other_vals]))
+
+    got = rec.gathered(gather, StageTimer())
+    want_groups, want_info = _old_gathered(gather, info, s, base)
+    assert got.per_group == want_groups
+    assert got.candidate_info == want_info
 
 
 def test_unported_routes_raise(tmp_path):

@@ -30,7 +30,7 @@ import torch
 from monkey_moore_tpu_torch import bench, bench_baseline_configs, perf_probe
 from monkey_moore_tpu_torch.dense import fused_count_extract_start
 from monkey_moore_tpu_torch.ops.host import LANES
-from monkey_moore_tpu_torch.ops.scan_cuda import GATHER_MODES
+from monkey_moore_tpu_torch.perf_probe import GATHER_MODES
 from monkey_moore_tpu_torch.pattern import compile_pattern
 from test_torch_engine import port_subprocess_env
 
@@ -120,18 +120,21 @@ def test_gather_modes_give_the_default_combo(width, plants):
         assert n_cand >= len(spots)
 
 
-def test_gather_selector_rejects_other_operands():
+def test_gather_step_rejects_other_operands():
+    """``perf_probe``'s ``ab`` tails refuse another mode and unpacked
+    elements; the search step takes no tail selector."""
     n_bytes = 1 << 16
     te = 8 * LANES
     words = bench.make_corpus(n_bytes, 1, "cpu", halo_bytes=te)
     pat = compile_pattern("ab*de", "*")
     data = bench.tile_view(words, n_bytes, te)
     with pytest.raises(ValueError, match="gather must be one of"):
-        fused_count_extract_start(pat, data, n_bytes, tile_elems=te,
-                                  gather="xla")
+        perf_probe.gather_step(pat, data, n_bytes, te, "xla")
     elems = data.view(torch.uint8)
     with pytest.raises(ValueError, match="packed step"):
-        fused_count_extract_start(pat, elems, n_bytes, tile_elems=te,
+        perf_probe.gather_combos(pat, elems, n_bytes, te)
+    with pytest.raises(TypeError, match="gather"):
+        fused_count_extract_start(pat, data, n_bytes, tile_elems=te,
                                   gather="take")
 
 

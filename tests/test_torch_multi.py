@@ -36,6 +36,7 @@ from monkey_moore_tpu_torch.engine import SearchEngine
 from monkey_moore_tpu_torch.multi import MultiSearcher
 from monkey_moore_tpu_torch.ops import scan_cuda, scan_torch
 from monkey_moore_tpu_torch.ops.host import COMBO_HEADER, combo_fields
+from monkey_moore_tpu_torch.scan_plan import decode_grid
 
 TE = 8 * LANES  # the smallest tile the fused multi route takes
 
@@ -409,7 +410,8 @@ def test_default_device_needs_cuda(tmp_path):
     {"reference_values": [1, 2, 3]},
 ])
 def test_copied_methods_equal(tmp_path, spec):
-    """``_config`` and ``_decode_grid`` are copies of the reference's."""
+    """``_config`` and ``scan_plan.decode_grid`` are copies of the
+    reference's ``_config`` and ``_decode_grid``."""
     path = _rom16(tmp_path)
     data = np.memmap(path, dtype=np.uint8, mode="r")
     for kwargs in ({}, dict(element_width=2, endianness=Endianness.BIG,
@@ -419,6 +421,41 @@ def test_copied_methods_equal(tmp_path, spec):
         ref = JaxMultiSearcher(path, **kwargs)
         assert port._config(spec) == carry_over(ref._config(spec))
         for align, e0, count in ((0, 0, 100), (1, 7, 50), (0, 29_990, 40)):
-            got = port._decode_grid(data, align, e0, count)
+            got = decode_grid(data, port.element_width, port.endianness,
+                              align, e0, count)
             want = ref._decode_grid(data, align, e0, count)
             assert got.dtype == want.dtype and got.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("make,kwargs,specs", [
+    (_rom8, {}, ["sword", SHIELD, "potion"]),
+    (_rom16, dict(element_width=2, endianness=Endianness.BIG),
+     ["zelda", {"keyword": "z*lda", "wildcard": "*"}]),
+], ids=["8bit", "16bit-be"])
+def test_resident_previews_equal_memory_map_previews(tmp_path, monkeypatch,
+                                                     make, kwargs, specs):
+    """Previews of a batch on a resident corpus are read from the corpus
+    (one gather per keyword) and equal, byte for byte, those read from the
+    file's memory map when nothing is resident."""
+    from monkey_moore_tpu_torch import corpus
+
+    path = make(tmp_path)
+    gathers = []
+    real = corpus.ResidentCorpus.windows
+
+    def windows(self, starts, length):
+        gathers.append(len(starts))
+        return real(self, starts, length)
+
+    monkeypatch.setattr(corpus.ResidentCorpus, "windows", windows)
+    corpus.clear_corpus_cache()
+    kwargs = carry_over(kwargs)
+    resident = MultiSearcher(path, device="cpu", **kwargs).search(
+        specs, generate_previews=True)
+    assert gathers == [len(g) for g in resident if g]
+    corpus.clear_corpus_cache()
+    mapped = MultiSearcher(path, device="cpu", resident_bytes_limit=0,
+                           **kwargs).search(specs, generate_previews=True)
+    assert len(gathers) == len([g for g in resident if g])
+    assert _as_lists(resident) == _as_lists(mapped)
+    assert all(r.preview for group in resident for r in group)
