@@ -5,7 +5,8 @@ The host half is a copy of the JAX engine's: block math
 (``compute_search_blocks``), the per-(block, alignment) suppression and
 recovery (``finalize_candidates``), pattern compilation, the host latency
 route (``_scan_host``, the C dense scanner), the exact reference walk
-(``_scan_reference``) and progress accounting (``_BlockProgress``);
+(``_scan_reference``) and progress accounting (``_BlockProgress``, whose
+callbacks are the original's; with no callback it only counts blocks);
 ``tests/test_torch_copies.py`` holds the copies equal to their originals.
 The port's own part is :meth:`SearchEngine.run` and the single-device
 dense scan:
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import os
+import threading
 from collections import deque
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -284,6 +286,24 @@ def _host_file_bytes(path: Path, file_size: int) -> np.ndarray:
     return hit
 
 
+class _FileMap:
+    """A large file's bytes for slicing, mapped at the first slice: the
+    resident routes slice none, and mapping the DVD-5 image took 0.6-1.0
+    ms a request on the H100's host.  The reference walk slices from its
+    pool, hence the lock."""
+
+    def __init__(self, path: Path):
+        self._path = path
+        self._map = None
+        self._lock = threading.Lock()
+
+    def __getitem__(self, where: slice) -> np.ndarray:
+        with self._lock:
+            if self._map is None:
+                self._map = np.memmap(self._path, dtype=np.uint8, mode="r")
+        return self._map[where]
+
+
 class _Windows:
     """File bytes for ``generate_preview``, served from windows fetched
     before: the slice ``[start, stop)`` of a window fetched at ``start``."""
@@ -413,10 +433,14 @@ class SearchEngine:
         s = cfg.element_width
         with span("mm.engine.plan"):
             file_size = path.stat().st_size
-            blocks = compute_search_blocks(
-                file_size, pat.length, s, cfg.preferred_search_block_size
-            )
-            log("blocks=", len(blocks), " file_size=", file_size)
+            # compute_search_blocks's count; only the reference walk needs
+            # the blocks themselves.  The per-block callbacks go to
+            # on_progress alone: without one, the tracker only counts.
+            num_blocks = -(-file_size // cfg.preferred_search_block_size)
+            log("blocks=", num_blocks, " file_size=", file_size)
+            tracker = _BlockProgress(num_blocks,
+                                     cfg.preferred_search_block_size,
+                                     on_progress, aborted)
 
             # Multi-host: this process scans only window starts inside its base
             # byte region; candidate lists are all-gathered before the
@@ -443,7 +467,7 @@ class SearchEngine:
             if file_size and file_size <= cfg.host_latency_threshold_bytes:
                 data = _host_file_bytes(path, file_size)
             elif file_size:
-                data = np.memmap(path, dtype=np.uint8, mode="r")
+                data = _FileMap(path)
             else:
                 data = np.zeros(0, dtype=np.uint8)
 
@@ -465,17 +489,17 @@ class SearchEngine:
         )
         if cfg.semantics is MatchSemantics.REFERENCE:
             raw = self._scan_reference(
-                pat, data, file_size, blocks, progress, aborted, timer,
+                pat, data, file_size, tracker, aborted, timer,
                 own_bytes=own_bytes, gather=gather,
             )
         elif use_host:
             raw = self._scan_host(
-                pat, data, file_size, blocks, progress, aborted, timer,
+                pat, data, file_size, tracker, aborted, timer,
                 own_bytes=own_bytes, gather=gather,
             )
         else:
             raw = self._scan_dense(
-                pat, data, file_size, blocks, progress, aborted, timer,
+                pat, data, file_size, tracker, aborted, timer,
                 mesh=mesh, own_bytes=own_bytes, gather=gather,
             )
         if raw is None:  # aborted
@@ -510,8 +534,8 @@ class SearchEngine:
         )
 
     # ------------------------------------------------------------------
-    def _scan_dense(self, pat, data, file_size, blocks, progress, aborted,
-                    timer, mesh=None, own_bytes=None, gather=None):
+    def _scan_dense(self, pat, data, file_size, tracker, aborted, timer,
+                    mesh=None, own_bytes=None, gather=None):
         """Two-phase dense scan (fused device steps + the per-(block,
         alignment) greedy suppression of ``finalize_candidates``).
 
@@ -536,8 +560,7 @@ class SearchEngine:
             corpus = self._sharded_corpus(pat, file_size, mesh, timer)
             if corpus is not None:
                 return self._scan_mesh_resident(
-                    pat, data, file_size, blocks, progress, aborted, timer,
-                    corpus,
+                    pat, data, file_size, tracker, aborted, timer, corpus,
                 )
 
         start = self._step_source(pat, data, file_size, plan, mesh,
@@ -565,12 +588,7 @@ class SearchEngine:
                     *meta, offs, vals, below=plan.chunk_elems
                 )
 
-        pipeline = _Pipeline(
-            max(1, cfg.pipeline_depth),
-            _BlockProgress(len(blocks), cfg.preferred_search_block_size,
-                           progress, aborted),
-            record,
-        )
+        pipeline = _Pipeline(max(1, cfg.pipeline_depth), tracker, record)
         for k in range(plan.n_chunks):
             if aborted():
                 return None
@@ -739,8 +757,8 @@ class SearchEngine:
             )
 
     # ------------------------------------------------------------------
-    def _scan_mesh_resident(self, pat, data, file_size, blocks, progress,
-                            aborted, timer, corpus):
+    def _scan_mesh_resident(self, pat, data, file_size, tracker, aborted,
+                            timer, corpus):
         """Whole-corpus mesh scan against a sharded resident corpus: per
         alignment grid, ONE mesh step (kernel A's counts, then kernel L's
         exact phase 2 over the hot tiles on every shard, each shard's halo
@@ -763,7 +781,6 @@ class SearchEngine:
 
         pairs, _, _ = _prefilter_sel(pat)
         recorder = CandidateRecorder(s, base)
-        tracker = _BlockProgress(len(blocks), base, progress, aborted)
 
         # Dispatch phase: enqueue BOTH alignment grids' mesh steps before
         # paying any result fetch, mirroring the dual-alignment structure of
@@ -827,8 +844,8 @@ class SearchEngine:
         return self._finalize(pat, file_size, recorder, None, timer)
 
     # ------------------------------------------------------------------
-    def _scan_host(self, pat, data, file_size, blocks, progress, aborted,
-                   timer, own_bytes=None, gather=None):
+    def _scan_host(self, pat, data, file_size, tracker, aborted, timer,
+                   own_bytes=None, gather=None):
         """Small-input latency path: dense scan on the HOST, no device.
 
         The reference's whole benchmark range is 128 KiB-16 MiB
@@ -883,7 +900,6 @@ class SearchEngine:
         n_slices = max(1, -(-grid_elems(file_size, s, 0) // slice_elems))
         slices = ChunkPlan(file_size, s, L, tile_elems=0,
                            chunk_elems=slice_elems, want=0, n_chunks=n_slices)
-        tracker = _BlockProgress(len(blocks), base, progress, aborted)
 
         def record(e0, a, offs, vals):
             # slices own starts within [0, slice_elems)
@@ -954,8 +970,8 @@ class SearchEngine:
         return self._finalize(pat, file_size, recorder, gather, timer)
 
     # ------------------------------------------------------------------
-    def _scan_reference(self, pat, data, file_size, blocks, progress, aborted,
-                        timer, own_bytes=None, gather=None):
+    def _scan_reference(self, pat, data, file_size, tracker, aborted, timer,
+                        own_bytes=None, gather=None):
         """Exact reference semantics: sequential walk per (block, alignment),
         run over a thread pool of ``preferred_num_threads`` workers — the
         mirror of the reference's ≤N concurrent ``std::async`` futures
@@ -977,8 +993,9 @@ class SearchEngine:
         flat_offs: list = []
         flat_vals: list = []
         shifts = recovery_shifts(pat)
-        tracker = _BlockProgress(len(blocks), cfg.preferred_search_block_size,
-                                 progress, aborted)
+        blocks = compute_search_blocks(
+            file_size, pat.length, s, cfg.preferred_search_block_size
+        )
 
         def walk_block(offset, size):
             """Worker lambda mirror (``search_engine.cpp:107-168``): decode
@@ -1074,23 +1091,62 @@ class SearchEngine:
 class _BlockProgress:
     """Reference-parity progress accounting: ``float`` accumulation of
     ``100/num_blocks`` per completed block (``search_engine.cpp:75-80,
-    161-165``), one callback per block, abort checked after each callback."""
+    161-165``), one callback per block, abort checked after each callback.
+
+    The float32 running sums are filled once, by ``np.add.accumulate``
+    (sequential, so each sum is the scalar loop's).  With *progress* None
+    no callback listens: a call only moves the count and checks the abort
+    once, so a chunk mark costs O(1) however many blocks it covers.
+    Traced runs count ``engine.blocks`` (blocks accounted) and
+    ``engine.progress_calls`` (callbacks fired)."""
 
     def __init__(self, num_blocks, base, progress, aborted):
         self.num_blocks = num_blocks
         self.base = base
         self.progress = progress
         self.aborted = aborted
-        self.total = np.float32(0.0)
         self.inc = np.float32(100.0) / np.float32(max(1, num_blocks))
         self.done = 0
+        self._pcts = None  # int(running sum) after each block, when needed
+        self._total = np.float32(0.0)  # running sum after the last of them
+
+    def _percents(self, upto: int) -> list:
+        """``int`` of the running sum after each of the first *upto*
+        blocks."""
+        if self._pcts is None:
+            totals = np.add.accumulate(
+                np.full(self.num_blocks, self.inc, np.float32),
+                dtype=np.float32,
+            )
+            if len(totals):
+                self._total = totals[-1]
+            self._pcts = totals.astype(np.int64).tolist()
+        while len(self._pcts) < upto:  # a caller stepping past the count
+            self._total = np.float32(self._total + self.inc)
+            self._pcts.append(int(self._total))
+        return self._pcts
+
+    def _advance(self, target: int) -> bool:
+        """Account blocks up to *target*; returns False on abort."""
+        start = self.done
+        if self.progress is None:
+            self.done = target
+            ok = not self.aborted()
+        else:
+            ok = True
+            pcts = self._percents(target)
+            while ok and self.done < target:
+                self.done += 1
+                self.progress(pcts[self.done - 1], SearchStep.SEARCHING)
+                ok = not self.aborted()
+        count("engine.blocks", self.done - start)
+        count("engine.progress_calls",
+              0 if self.progress is None else self.done - start)
+        return ok
 
     def step(self) -> bool:
         """One block finished → callback; returns False on abort."""
-        self.total = np.float32(self.total + self.inc)
-        self.done += 1
-        self.progress(int(self.total), SearchStep.SEARCHING)
-        return not self.aborted()
+        return self._advance(self.done + 1)
 
     def advance_to(self, bytes_done: int, final: bool) -> bool:
         """Emit callbacks for blocks fully covered up to *bytes_done*."""
@@ -1098,10 +1154,7 @@ class _BlockProgress:
             self.num_blocks, bytes_done // self.base
         )
         with span("mm.engine.progress"):
-            while self.done < target:
-                if not self.step():
-                    return False
-        return True
+            return self.done >= target or self._advance(target)
 
     def finish(self) -> bool:
         return self.advance_to(0, final=True) if self.done < self.num_blocks else True

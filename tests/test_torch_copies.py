@@ -382,21 +382,27 @@ def test_finalize_candidates_equal(semantics, s):
     assert got
 
 
-def test_block_progress_and_helpers_equal():
-    for num_blocks in (1, 3, 7, 100):
-        seen_t, seen_j = [], []
-        t = tengine._BlockProgress(num_blocks, 10,
-                                   lambda p, st: seen_t.append((p, st)),
-                                   lambda: False)
-        j = jengine._BlockProgress(num_blocks, 10,
-                                   lambda p, st: seen_j.append((p, st)),
-                                   lambda: False)
-        for progress in (t, j):
-            progress.advance_to(35, final=False)
-            progress.step()
-            progress.finish()
-        assert [p for p, _ in seen_t] == [p for p, _ in seen_j]
-        assert [st.name for _, st in seen_t] == [st.name for _, st in seen_j]
+@pytest.mark.parametrize("num_blocks", [1, 3, 7, 100, 2785, 8966, 65537])
+def test_block_progress_and_helpers_equal(num_blocks):
+    """The port's tracker fires the original's callbacks, whose float32
+    sums it precomputes (2,785 and 8,966: the GameCube and DVD-5 images
+    of the benchmark at the default block)."""
+    seen_t, seen_j = [], []
+    t = tengine._BlockProgress(num_blocks, 10,
+                               lambda p, st: seen_t.append((p, st)),
+                               lambda: False)
+    j = jengine._BlockProgress(num_blocks, 10,
+                               lambda p, st: seen_j.append((p, st)),
+                               lambda: False)
+    for progress in (t, j):
+        progress.advance_to(35, final=False)
+        progress.step()
+        progress.advance_to(5 * num_blocks, final=False)
+        progress.finish()
+    assert [p for p, _ in seen_t] == [p for p, _ in seen_j]
+    assert [st.name for _, st in seen_t] == [st.name for _, st in seen_j]
+    # the step past three blocks overshoots the count (sums past 100)
+    assert len(seen_t) == num_blocks + (num_blocks <= 3)
     for flag in (None, True, False, lambda: True):
         assert tengine._normalize_abort(flag)() == jengine._normalize_abort(
             flag)()

@@ -12,6 +12,7 @@ card, and ``chip_smoke.py`` fails without one.
 Tolerance: exact equality throughout — every value is an integer.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -229,6 +230,131 @@ def test_abort_mid_pipeline(tmp_path):
     )
     engine = SearchEngine(cfg, device="cpu")
     assert engine.run(on_progress=saboteur, abort_flag=flag) == []
+
+
+# ---- block progress with and without a listener --------------------------------
+
+#: the engine's four routes over a multi-chunk file: config keywords
+ROUTES = {
+    "dense": dict(host_latency_threshold_bytes=0, pipeline_depth=2),
+    "host": dict(),
+    "reference": dict(semantics=tconfig.MatchSemantics.REFERENCE,
+                      preferred_num_threads=2),
+    "mesh": dict(devices=["cpu"] * 4, host_latency_threshold_bytes=0),
+}
+
+
+def _route_config(tmp_path, route):
+    rng = np.random.default_rng(24)
+    data = rng.integers(0, 256, 70_000).astype(np.uint8)
+    for pos in (5, 16_383, 40_001, 69_990):
+        data[pos : pos + 6] = text_u8("monkey", 7)
+    return tconfig.SearchConfig(
+        file_path=write_file(tmp_path, data), keyword="monkey",
+        preferred_search_block_size=1000, device_chunk_bytes=16_384,
+        **ROUTES[route])
+
+
+def _fresh_run(cfg, **kwargs):
+    """A run with no corpus held from an earlier one (so both runs upload
+    and count the same bytes); returns its results and stats."""
+    from monkey_moore_tpu_torch import corpus
+    from monkey_moore_tpu_torch.parallel import resident
+
+    corpus.clear_corpus_cache()
+    resident.clear_sharded_corpus_cache()
+    engine = SearchEngine(cfg, device="cpu")
+    return engine.run(**kwargs), engine.last_stats
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_results_and_stats_do_not_depend_on_a_listener(tmp_path, route):
+    cfg = _route_config(tmp_path, route)
+    seen = []
+    quiet, quiet_stats = _fresh_run(cfg)
+    heard, heard_stats = _fresh_run(
+        cfg, on_progress=lambda pct, step: seen.append((pct, step)))
+    assert [(r.offset, r.values_map) for r in quiet] == [
+        (r.offset, r.values_map) for r in heard]
+    assert [r.offset for r in quiet] == [5, 16_383, 40_001, 69_990]
+    for f in dataclasses.fields(quiet_stats):
+        if f.name not in ("stage_seconds", "record"):
+            assert getattr(quiet_stats, f.name) == getattr(
+                heard_stats, f.name), f.name
+    assert quiet_stats.host_routed == (route == "host")
+    # one SEARCHING callback a block, 70 blocks of 1000 bytes
+    searching = [p for p, st in seen if st is tconfig.SearchStep.SEARCHING]
+    assert len(searching) == 1 + 70 and searching[-1] == 100
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_abort_without_a_listener_returns_nothing(tmp_path, route):
+    checks = []
+
+    def abort_after_first_check():
+        checks.append(1)
+        return len(checks) > 1
+
+    cfg = _route_config(tmp_path, route)
+    size = os.path.getsize(cfg.file_path)
+    assert chunk_plan(size, 1, 6, cfg.device_chunk_bytes).n_chunks > 1
+    results, _ = _fresh_run(cfg, abort_flag=abort_after_first_check)
+    assert results == [] and len(checks) >= 2
+
+
+def test_no_listener_checks_the_abort_once_a_mark():
+    from monkey_moore_tpu_torch.engine import _BlockProgress
+
+    checks = []
+    base = 524_288
+    tracker = _BlockProgress(8966, base, None,
+                             lambda: checks.append(1) is not None)
+    for k in range(1, 10):
+        assert tracker.advance_to(k * 1000 * base, final=k == 9)
+        assert len(checks) <= k
+    assert tracker.done == 8966 and tracker.finish()
+    assert len(checks) <= 9
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_only_a_route_that_reads_the_file_maps_it(tmp_path, monkeypatch,
+                                                  resident):
+    maps = []
+    real = np.memmap
+
+    def counting(*args, **kwargs):
+        maps.append(args[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(np, "memmap", counting)
+    cfg = _route_config(tmp_path, "dense")
+    if not resident:
+        cfg = dataclasses.replace(cfg, resident_bytes_limit=0)
+    results, _ = _fresh_run(cfg, generate_previews=True)
+    assert [r.offset for r in results] == [5, 16_383, 40_001, 69_990]
+    assert all(r.preview for r in results)
+    assert len(maps) == (0 if resident else 1)
+
+
+@pytest.mark.parametrize("listener", [False, True])
+def test_block_counters_under_a_profiler(tmp_path, listener):
+    base = 64
+    data = np.random.default_rng(25).integers(0, 256, 8966 * base)
+    cfg = tconfig.SearchConfig(
+        file_path=write_file(tmp_path, data.astype(np.uint8)),
+        keyword="monkey", preferred_search_block_size=base,
+        device_chunk_bytes=65_536, host_latency_threshold_bytes=0)
+    calls = []
+    kwargs = {"on_progress": lambda p, st: calls.append(p)} if listener \
+        else {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, stats = _fresh_run(cfg, **kwargs)
+    counters = stats.record.counters
+    assert counters["engine.blocks"] == 8966
+    assert counters["engine.progress_calls"] == (8966 if listener else 0)
+    assert len(calls) == (8966 + 3 if listener else 0)
+    assert "mm.engine.progress" in {s.name for s in stats.record.spans}
 
 
 def _old_chunk_geometry(file_size, s, L, chunk_bytes):
