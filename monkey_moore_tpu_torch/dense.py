@@ -28,7 +28,9 @@ count on the host.
 
 :func:`fused_count_extract_multi` is the keyword-batch step of
 ``multi.MultiSearcher``: one pass of kernel C counts every keyword, then
-each keyword's hot tiles take the same gather and exact phase 2.
+each keyword's hot tiles take the same gather and exact phase 2; its
+``_start`` / ``_finish`` halves split the enqueue from the fetch and the
+K host decodes.
 """
 
 from __future__ import annotations
@@ -83,6 +85,9 @@ __all__ = [
     "fused_count_extract_finish",
     "fused_count_extract",
     "fused_multi_eligible",
+    "FusedMultiPending",
+    "fused_count_extract_multi_start",
+    "fused_count_extract_multi_finish",
     "fused_count_extract_multi",
     "extract_hot_tiles_device",
     "two_phase_candidates",
@@ -363,6 +368,73 @@ def fused_multi_eligible(
     return True
 
 
+class FusedMultiPending(NamedTuple):
+    """An in-flight keyword-batch step: kernel C's counts and the K combo
+    buffers on the device, plus what :func:`fused_count_extract_multi_finish`
+    needs to fetch and decode them."""
+
+    counts_dev: object
+    combos_dev: object
+    pats: list
+    arr_device: object
+    valid_count: int
+    tile_elems: int
+    grid_offset: int
+    k_cap: int
+    p_cap: int
+
+
+def fused_count_extract_multi_start(
+    pats: List[CompiledPattern],
+    arr_device: torch.Tensor,
+    valid_count: int,
+    tile_elems: int = TILE_ELEMS,
+    k_cap: int | None = None,
+    p_cap: int = 1024,
+    grid_offset: int = 0,
+) -> FusedMultiPending | None:
+    """Enqueue the batch step of :func:`fused_count_extract_multi` without
+    fetching its result: kernel C, then L per pattern.  None when the
+    batch is not eligible or the chunk is not packed."""
+    if not fused_multi_eligible(pats, tile_elems):
+        return None
+    if arr_device.dtype != torch.int32:
+        return None
+    if k_cap is None:
+        _, _, active_list = canonical_check_tables(pats)
+        k_cap = max(
+            auto_k_cap(pat, valid_count, tile_elems,
+                       int(np.count_nonzero(act)))
+            for pat, act in zip(pats, active_list)
+        )
+    counts_dev, combos_dev = tile_counts_multi_gather(
+        pats, arr_device, valid_count, tile_elems, k_cap, p_cap
+    )
+    return FusedMultiPending(
+        counts_dev, combos_dev, list(pats), arr_device, valid_count,
+        tile_elems, grid_offset, k_cap, p_cap,
+    )
+
+
+def fused_count_extract_multi_finish(
+    pending: FusedMultiPending,
+) -> List[Tuple[np.ndarray, np.ndarray, FusedInfo]]:
+    """Fetch an in-flight batch step (the span ``mm.step.fetch``: ONE
+    device→host copy of the K combo buffers), then decode each pattern's
+    buffer on the host (``mm.step.decode``; an overflowing pattern's
+    fallback runs inside it)."""
+    p = pending
+    with span("mm.step.fetch"):
+        combos = p.combos_dev.cpu().numpy().reshape(len(p.pats), -1)
+    with span("mm.step.decode"):
+        return [
+            _decode_step(pat, combos[k], p.counts_dev[k], p.arr_device,
+                         p.valid_count, p.tile_elems, p.grid_offset,
+                         p.k_cap, p.p_cap)
+            for k, pat in enumerate(p.pats)
+        ]
+
+
 def fused_count_extract_multi(
     pats: List[CompiledPattern],
     arr_device: torch.Tensor,
@@ -380,26 +452,12 @@ def fused_count_extract_multi(
     packed (callers take the element-wise multi count instead).  A pattern
     whose capacities overflow fetches its counts and runs
     :func:`extract_hot_tiles_device`."""
-    if not fused_multi_eligible(pats, tile_elems):
-        return None
-    if arr_device.dtype != torch.int32:
-        return None
-    if k_cap is None:
-        _, _, active_list = canonical_check_tables(pats)
-        k_cap = max(
-            auto_k_cap(pat, valid_count, tile_elems,
-                       int(np.count_nonzero(act)))
-            for pat, act in zip(pats, active_list)
-        )
-    counts_dev, combos_dev = tile_counts_multi_gather(
-        pats, arr_device, valid_count, tile_elems, k_cap, p_cap
+    pending = fused_count_extract_multi_start(
+        pats, arr_device, valid_count, tile_elems=tile_elems, k_cap=k_cap,
+        p_cap=p_cap, grid_offset=grid_offset,
     )
-    combos = combos_dev.cpu().numpy().reshape(len(pats), -1)
-    return [
-        _decode_step(pat, combos[k], counts_dev[k], arr_device, valid_count,
-                     tile_elems, grid_offset, k_cap, p_cap)
-        for k, pat in enumerate(pats)
-    ]
+    return None if pending is None else fused_count_extract_multi_finish(
+        pending)
 
 
 def extract_hot_tiles_device(

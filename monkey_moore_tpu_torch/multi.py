@@ -53,7 +53,8 @@ from .corpus import get_resident_corpus
 from .dense import (
     TILE_ELEMS,
     extract_hot_tiles_device,
-    fused_count_extract_multi,
+    fused_count_extract_multi_finish,
+    fused_count_extract_multi_start,
     fused_multi_eligible,
 )
 from .engine import (
@@ -68,7 +69,14 @@ from .ops.scan_torch import tile_counts_multi
 from .parallel.mesh import make_mesh
 from .parallel.resident import get_sharded_corpus
 from .parallel.sharded import sharded_fused_multi_step
-from .profiling import StageTimer
+from .profiling import (
+    SearchStats,
+    StageTimer,
+    count,
+    device_trace,
+    run_record,
+    span,
+)
 from .scan_plan import (
     CandidateRecorder,
     chunk_plan,
@@ -115,6 +123,11 @@ class MultiSearcher:
         #: the mesh's torch devices, as a config's ``devices`` takes them
         self.devices = list(self.mesh.devices) if devices else None
         self.device = resolve_device(device, "MultiSearcher")
+        #: :class:`~monkey_moore_tpu_torch.profiling.SearchStats` of the
+        #: last batch (None before the first): stages, bytes scanned once
+        #: a step, ``fused_steps`` and ``fused_fallbacks`` by keyword-step,
+        #: and the run's span record as ``record``
+        self.last_stats = None
 
     def _config(self, spec: Spec) -> SearchConfig:
         kw = {"keyword": spec} if isinstance(spec, str) else dict(spec)
@@ -144,21 +157,37 @@ class MultiSearcher:
         generate_previews: bool = False,
     ) -> List[List[SearchResult]]:
         """Search every spec; returns one result list per spec, each sorted
-        by byte offset (identical to running the engine per keyword)."""
+        by byte offset (identical to running the engine per keyword).
+
+        ``last_stats`` is then the batch's :class:`~monkey_moore_tpu_torch.
+        profiling.SearchStats`, with the run's span record as ``record``
+        (spans under the root ``mm.multi.search`` while a
+        ``torch.profiler`` runs, as ``SearchEngine.run`` keeps them)."""
         if not specs:
             return []
+        with device_trace(), run_record() as record, \
+                span("mm.multi.search"):
+            timer = StageTimer(SearchStats())
+            timer.stats.record = record
+            self.last_stats = timer.stats
+            count("multi.keywords", len(specs))
+            return self._search(specs, generate_previews, timer)
+
+    def _search(self, specs, generate_previews, timer):
+        stats = timer.stats
         if self.semantics is MatchSemantics.REFERENCE:
-            return [
-                self._engine(s).run(generate_previews=generate_previews)
-                for s in specs
-            ]
-        pats = [self._engine(s).compile() for s in specs]
+            return [self._run_engine(self._engine(s), generate_previews,
+                                     stats) for s in specs]
+        pats = []
+        for spec in specs:
+            with timer.stage("compile_pattern"):
+                pats.append(self._engine(spec).compile())
         if not self.file_path.exists():
             raise FileNotFoundError("File not found")
         file_size = self.file_path.stat().st_size
         if self.mesh is not None:
             return self._search_mesh(specs, pats, file_size,
-                                     generate_previews)
+                                     generate_previews, timer)
         s = self.element_width
         plan = chunk_plan(file_size, s, max(p.length for p in pats),
                           self.chunk_bytes)
@@ -169,13 +198,17 @@ class MultiSearcher:
             if file_size
             else np.zeros(0, dtype=np.uint8)
         )
-        resident = get_resident_corpus(
-            self.file_path,
-            file_size,
-            self.resident_bytes_limit,
-            pad_bytes=plan.want * s + s,
-            device=self.device,
-        )
+        with timer.stage("corpus_upload"):
+            resident = get_resident_corpus(
+                self.file_path,
+                file_size,
+                self.resident_bytes_limit,
+                pad_bytes=plan.want * s + s,
+                device=self.device,
+            )
+        if resident is not None and resident.fresh:
+            stats.h2d_bytes += len(resident)
+            resident.fresh = False
 
         # the fused route: one kernel C pass per grid counts every keyword;
         # chosen from the batch and the tile size before any launch
@@ -186,33 +219,56 @@ class MultiSearcher:
         lengths = [p.length for p in pats]
         recorders = [CandidateRecorder(s, self.block_size) for _ in pats]
 
+        def record(a, e0, found):
+            """One fused step's ``(offsets, values, info)`` per keyword
+            into the keywords' recorders; every keyword counts as a fused
+            step."""
+            with span("mm.engine.record"):
+                for rec, (offs, vals, info) in zip(recorders, found):
+                    stats.fused_steps += 1
+                    stats.fused_fallbacks += int(info.fallback)
+                    stats.hot_tiles += info.hot_tiles
+                    stats.d2h_bytes += info.d2h_bytes
+                    stats.candidates += rec.add(a, e0, offs, vals,
+                                                below=plan.chunk_elems)
+
         for k in range(plan.n_chunks):
+            stats.chunks += 1
             for a, e0, count_here in plan.steps(k, l_min):
+                stats.device_dispatches += 1
+                stats.bytes_scanned += count_here * s
+                if use_fused:
+                    with timer.stage("device_scan"):
+                        with span("mm.step.enqueue"):
+                            pending = fused_count_extract_multi_start(
+                                pats,
+                                resident.grid_chunk(
+                                    s, self.endianness, a, e0, plan.want,
+                                    packed=True,
+                                ),
+                                count_here, tile_elems=plan.tile_elems,
+                            )
+                        found = fused_count_extract_multi_finish(pending)
+                    record(a, e0, found)
+                    continue
+
                 if resident is not None:
                     dev_arr = resident.grid_chunk(
                         s, self.endianness, a, e0, plan.want,
-                        packed=use_fused,
                     )
                     arr_host = None
                 else:
-                    arr_host = plan.host_chunk(data, self.endianness, a, e0,
-                                               count_here)
+                    with timer.stage("decode"):
+                        arr_host = plan.host_chunk(data, self.endianness, a,
+                                                   e0, count_here)
                     dev_arr = torch.from_numpy(arr_host).to(self.device)
-
-                if use_fused:
-                    fused = fused_count_extract_multi(
-                        pats, dev_arr, count_here,
-                        tile_elems=plan.tile_elems,
+                    stats.h2d_bytes += arr_host.nbytes
+                with timer.stage("device_scan"):
+                    counts_all = tile_counts_multi(
+                        dev_arr, count_here, exp_list, active_list, lengths,
+                        pair_sets=pair_sets, tile_elems=plan.tile_elems,
                     )
-                    for rec, (offs, vals, _info) in zip(recorders, fused):
-                        rec.add(a, e0, offs, vals, below=plan.chunk_elems)
-                    continue
-
-                counts_all = tile_counts_multi(
-                    dev_arr, count_here, exp_list, active_list, lengths,
-                    pair_sets=pair_sets, tile_elems=plan.tile_elems,
-                )
-                counts_np = torch.stack(counts_all).cpu().numpy()
+                    counts_np = torch.stack(counts_all).cpu().numpy()
                 for pi, counts in enumerate(counts_np):
                     if not counts.any():
                         continue
@@ -226,16 +282,32 @@ class MultiSearcher:
                             pats[pi], arr_host[:count_here], counts,
                             plan.tile_elems,
                         )
-                    recorders[pi].add(a, e0, offs, vals,
-                                      below=plan.chunk_elems)
+                    stats.candidates += recorders[pi].add(
+                        a, e0, offs, vals, below=plan.chunk_elems)
 
         return self._finalize_all(
             specs, pats, recorders, data, file_size, generate_previews,
+            timer,
         )
+
+    @staticmethod
+    def _run_engine(engine: SearchEngine, generate_previews: bool,
+                    stats: SearchStats) -> List[SearchResult]:
+        """*engine*'s results, its stats added to the batch's *stats*."""
+        results = engine.run(generate_previews=generate_previews)
+        one = engine.last_stats
+        seconds = stats.stage_seconds
+        for name, sec in one.stage_seconds.items():
+            seconds[name] = seconds.get(name, 0.0) + sec
+        for name in ("bytes_scanned", "chunks", "device_dispatches",
+                     "hot_tiles", "candidates", "results", "fused_steps",
+                     "fused_fallbacks", "d2h_bytes", "h2d_bytes"):
+            setattr(stats, name, getattr(stats, name) + getattr(one, name))
+        return results
 
     def _search_mesh(
         self, specs: Sequence[Spec], pats, file_size: int,
-        generate_previews: bool,
+        generate_previews: bool, timer: StageTimer,
     ) -> List[List[SearchResult]]:
         """Keyword batch across the mesh.
 
@@ -252,11 +324,10 @@ class MultiSearcher:
             for sp in specs:
                 cfg = self._config(sp)
                 cfg.devices = self.devices
-                out.append(
-                    SearchEngine(cfg, device=self.device).run(
-                        generate_previews=generate_previews
-                    )
-                )
+                out.append(self._run_engine(
+                    SearchEngine(cfg, device=self.device),
+                    generate_previews, timer.stats,
+                ))
             return out
 
         s = self.element_width
@@ -280,13 +351,17 @@ class MultiSearcher:
             valid_count = grid_elems(file_size, s, a)
             if valid_count < l_min:
                 continue
-            res = sharded_fused_multi_step(
-                pats, corpus.grid(s, self.endianness, a), valid_count,
-                corpus.tile_elems, corpus.t_loc(s),
-            )
+            timer.stats.bytes_scanned += valid_count * s
+            with timer.stage("device_scan"):
+                res = sharded_fused_multi_step(
+                    pats, corpus.grid(s, self.endianness, a), valid_count,
+                    corpus.tile_elems, corpus.t_loc(s),
+                )
             arr = None  # decoded once per alignment, only if any overflow
             for pi, (offs, vals, _info, over) in enumerate(res):
+                timer.stats.fused_steps += 1
                 if over is not None:
+                    timer.stats.fused_fallbacks += 1
                     if arr is None:
                         arr = decode_grid_host(
                             data, file_size, s, self.endianness, a
@@ -294,24 +369,32 @@ class MultiSearcher:
                     offs, vals = extract_hot_tiles(
                         pats[pi], arr, over, corpus.tile_elems
                     )
-                recorders[pi].add(a, 0, offs, vals)
+                timer.stats.candidates += recorders[pi].add(a, 0, offs, vals)
         return self._finalize_all(
             specs, pats, recorders, data, file_size, generate_previews,
+            timer,
         )
 
     def _finalize_all(
         self, specs, pats, recorders, data, file_size, generate_previews,
+        timer: StageTimer,
     ) -> List[List[SearchResult]]:
-        """Per-pattern finalize, then the engine's sorted results and
-        previews."""
-        out: List[List[SearchResult]] = []
-        for spec, pat, rec in zip(specs, pats, recorders):
-            raw = finalize_candidates(
-                pat, self.semantics, self.element_width, self.block_size,
-                file_size, rec.per_group, rec.candidate_info,
-            )
-            out.append(search_results(
+        """Per-pattern finalize (the span ``mm.engine.finalize`` around all
+        of them), then the engine's sorted results and previews."""
+        with span("mm.engine.finalize"):
+            raws = [
+                finalize_candidates(
+                    pat, self.semantics, self.element_width, self.block_size,
+                    file_size, rec.per_group, rec.candidate_info,
+                )
+                for pat, rec in zip(pats, recorders)
+            ]
+        out = [
+            search_results(
                 raw, pat, self._config(spec), data, file_size, self.device,
-                generate_previews, StageTimer(),
-            ))
+                generate_previews, timer,
+            )
+            for spec, pat, raw in zip(specs, pats, raws)
+        ]
+        timer.stats.results = sum(len(r) for r in out)
         return out

@@ -646,11 +646,18 @@ def multi_operand(
     uploads its operands once (``compile_pattern`` memoizes, so identical
     keywords give identical pattern objects; the memo holds them, so ids
     stay stable)."""
+    return _multi_entry(pats, valid_count, device)[1:3]
+
+
+def _multi_entry(pats, valid_count: int, device) -> tuple:
+    """The memo entry of :func:`multi_operand`: ``(pats, table,
+    last_starts, (windows, first_windows))``, the last two C's window
+    starts by :func:`_window_counts`."""
     key = (tuple(id(p) for p in pats), valid_count, str(torch.device(device)))
     with _multi_memo_lock:
         hit = _multi_memo.get(key)
     if hit is not None:
-        return hit[1:]
+        return hit
     pair_sets, exp_list, active_list = canonical_check_tables(pats)
     pairs_padded, exp_mat, act_mat = multi_pattern_tables(
         pair_sets, exp_list, active_list
@@ -660,16 +667,36 @@ def multi_operand(
     table[:, 1] = [[p for _, p in prs] for prs in pairs_padded]
     table[:, 2] = exp_mat
     table[:, 3] = act_mat
-    operand = (
+    last_starts = [valid_count - p.length for p in pats]
+    entry = (
+        tuple(pats),
         torch.tensor(table, dtype=torch.int32, device=device),
-        torch.tensor([valid_count - p.length for p in pats],
-                     dtype=torch.int64, device=device),
+        torch.tensor(last_starts, dtype=torch.int64, device=device),
+        _window_counts(table, last_starts),
     )
     with _multi_memo_lock:
         if len(_multi_memo) >= 64:
             _multi_memo.clear()
-        _multi_memo[key] = (tuple(pats), *operand)
-    return operand
+        _multi_memo[key] = entry
+    return entry
+
+
+def _window_counts(table: np.ndarray, last_starts: List[int]
+                   ) -> Tuple[int, int]:
+    """``(windows, first_windows)`` of one launch of kernel C: the window
+    starts of every pattern with an active check, summed, and those of
+    each distinct first check pair, the largest of the patterns that begin
+    with it, summed (``counts_bench.first_pairs``: C computes a pair's
+    diff once for the patterns that share it)."""
+    windows, firsts = 0, {}
+    for (cur, prev, _, active), last in zip(table, last_starts):
+        on = np.flatnonzero(active)
+        if len(on):
+            n = max(0, last + 1)
+            pair = (int(cur[on[0]]), int(prev[on[0]]))
+            windows += n
+            firsts[pair] = max(firsts.get(pair, 0), n)
+    return windows, sum(firsts.values())
 
 
 def tile_counts_multi(
@@ -743,8 +770,19 @@ def tile_counts_multi_gather(
     counts every pattern in one pass, then kernel L re-checks each
     pattern's hot tiles exactly.  Returns device tensors
     ``(counts (K, T) int32, combos int32)``: the K per-pattern combo
-    buffers concatenated, the batch's one device→host copy."""
-    table, last_starts = multi_operand(pats, valid_count, words.device)
+    buffers concatenated, the batch's one device→host copy.
+
+    Under a profiler it counts, for C's call (a launch on the card, the
+    plain version on the CPU), ``kernel.counts_multi`` (1),
+    ``kernel.counts_multi_bytes`` (the words' bytes, read once) and the
+    window starts of :func:`_window_counts`: ``kernel.counts_multi_windows``
+    and ``kernel.counts_multi_first_windows``."""
+    _, table, last_starts, (windows, first_windows) = _multi_entry(
+        pats, valid_count, words.device)
+    profiling.count("kernel.counts_multi", 1)
+    profiling.count("kernel.counts_multi_bytes", 4 * words.numel())
+    profiling.count("kernel.counts_multi_windows", windows)
+    profiling.count("kernel.counts_multi_first_windows", first_windows)
     counts = tile_counts_multi(
         words, table, last_starts, width=np.dtype(pats[0].dtype).itemsize,
         tile_elems=tile_elems,

@@ -352,7 +352,8 @@ def _as_lists(results):
 def test_multi_searcher_equal(tmp_path, monkeypatch, name, make, kwargs,
                               specs, previews, fused):
     path = make(tmp_path)
-    fused_calls = _record(monkeypatch, tmulti, "fused_count_extract_multi")
+    fused_calls = _record(monkeypatch, tmulti,
+                          "fused_count_extract_multi_start")
     want = JaxMultiSearcher(path, **kwargs).search(
         specs, generate_previews=previews)
     got = MultiSearcher(path, device="cpu", **carry_over(kwargs)).search(
